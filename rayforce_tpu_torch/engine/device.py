@@ -1,0 +1,240 @@
+"""Device engine: the per-column device cache, per-table column stats,
+and which device the engine runs on.
+
+- Device choice. With no setting the engine runs on `cuda`; if CUDA is
+  absent, the first column upload raises `DeviceError` (it does not
+  quietly run on CPU torch). `RAYFORCE_DEVICE=cpu` (or
+  `set_device("cpu")`) runs the device path on CPU torch with each
+  kernel's plain version, as the tests do. `RAYFORCE_DEVICE=0` (or
+  `set_enabled(False)`) runs the host numpy path.
+- Columns are uploaded once and cached on their Obj.
+- Column stats (min, max, has_null, qscale) are computed for a whole
+  table at once and fetched in one transfer.
+- Config: the row threshold for the device path and the dense
+  code-space cap (the analogue of the reference's perfect-hash range
+  guard, core/index.c:2308-2424).
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..core import types as T
+from ..core.obj import Obj, to_np
+
+
+class DeviceError(RuntimeError):
+    """The device engine cannot run: no card, or a kernel failed to
+    build, load, allocate or launch. The select hook re-raises it
+    instead of running the host path."""
+
+
+def is_fault(e: BaseException) -> bool:
+    """Whether an error on the device path must propagate instead of
+    falling back to the host path: a DeviceError, an out-of-memory
+    error, or a CUDA error that a torch call raised (an asynchronous
+    fault in a kernel surfaces in a later call, as torch's
+    AcceleratorError or, in older torch, a RuntimeError naming CUDA).
+    Anything else is a plan the engine cannot run, and the host path
+    takes it, as in the reference."""
+    if isinstance(e, (DeviceError, torch.OutOfMemoryError)):
+        return True
+    if type(e).__name__ == "AcceleratorError":
+        return True
+    return isinstance(e, RuntimeError) and "CUDA" in str(e)
+
+
+# -- configuration ----------------------------------------------------------
+
+_cfg = {
+    "enabled": None,       # None: from RAYFORCE_DEVICE at first use
+    "device": None,        # None: from RAYFORCE_DEVICE at first use
+    "threshold": 1 << 17,  # rows below this stay on the host numpy path
+    "dense_max": 1 << 20,  # max dense group-code space (H*W <= ~1M)
+}
+
+
+def available() -> bool:
+    if _cfg["enabled"] is None:
+        _cfg["enabled"] = os.environ.get("RAYFORCE_DEVICE", "") != "0"
+    return bool(_cfg["enabled"])
+
+
+def set_enabled(flag) -> None:
+    _cfg["enabled"] = flag
+
+
+def set_device(name) -> None:
+    """Run the device path on `name` ("cuda" or "cpu") from now on."""
+    _cfg["device"] = torch.device(name)
+    _cfg["enabled"] = True
+
+
+def device() -> torch.device:
+    """The engine's device. Raises DeviceError when it is CUDA and no
+    card is present."""
+    d = _cfg["device"]
+    if d is None:
+        env = os.environ.get("RAYFORCE_DEVICE", "")
+        d = torch.device("cpu" if env == "cpu" else "cuda")
+        _cfg["device"] = d
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise DeviceError("the device engine runs on CUDA and no card is "
+                          "present; set RAYFORCE_DEVICE=cpu to run it on "
+                          "CPU torch or RAYFORCE_DEVICE=0 for the host path")
+    return d
+
+
+def set_threshold(n: int) -> None:
+    _cfg["threshold"] = n
+
+
+def should_use(n_rows: int) -> bool:
+    return available() and n_rows >= _cfg["threshold"]
+
+
+def mesh():
+    """The multi-device mesh: not ported yet (ROADMAP), so always None."""
+    return None
+
+
+# -- column device cache ----------------------------------------------------
+
+_STATLESS = (T.GUID, T.C8, T.LIST)
+
+
+def dev_col(col: Obj) -> torch.Tensor:
+    """Device copy of a column's payload, cached on the Obj. A column
+    whose payload is still device-resident (DevPending) is used as-is."""
+    d = device()
+    if isinstance(col.meta, dict) and "dev" in col.meta:
+        arr = col.meta["dev"]
+        if arr.device == d or (arr.device.type == d.type == "cuda"):
+            return arr
+    p = col.pending()
+    arr = p.arr if p is not None else \
+        torch.from_numpy(np.ascontiguousarray(to_np(col))).to(d)
+    if not isinstance(col.meta, dict):
+        col.meta = {}
+    col.meta["dev"] = arr
+    return arr
+
+
+# decimal fixed-point scales probed by the column-stats pass: an f64
+# column whose finite values all sit on one of these grids (and fit i32
+# when scaled) can ride group-by sorts as an EXACT i32 operand.
+QSCALES = (1.0, 1e2, 1e4, 1e6)
+
+_I64_MAX = 0x7FFFFFFFFFFFFFFF
+_I64_MIN = -0x8000000000000000
+_INT_NULL = {torch.int64: int(T.NULL_I64), torch.int32: int(T.NULL_I32),
+             torch.int16: int(T.NULL_I16)}
+
+
+def _k_minmax_all(cols):
+    """Per column: a 4-vector (min, max, has_null, qscale) skipping
+    nulls/NaNs, f64 for f64 columns and i64 otherwise. has_null lets
+    query plans drop per-group null-count work; qscale (f64 columns
+    only; 0 = none) is the smallest decimal grid the values provably
+    sit on, enabling i32 sort operands."""
+    outs = []
+    for a in cols:
+        if a.dtype == torch.float64:
+            nulls = torch.isnan(a)
+            lo = torch.where(nulls, np.inf, a).min()
+            hi = torch.where(nulls, -np.inf, a).max()
+            qscale = a.new_zeros(())
+            for s in reversed(QSCALES):
+                vs = a * s
+                rv = torch.round(vs)
+                err = torch.abs(vs - rv)
+                tol = 1e-7 + torch.abs(vs) * 1e-13
+                ok = torch.where(
+                    nulls, True,
+                    (err <= tol) & (torch.abs(rv) <= (1 << 31) - 2)).all()
+                qscale = torch.where(ok, s, qscale)
+            outs.append(torch.stack(
+                [lo, hi, nulls.any().to(torch.float64), qscale]))
+            continue
+        nv = _INT_NULL.get(a.dtype)
+        x = a.to(torch.int64)
+        if nv is not None:
+            nulls = a == nv
+            lo = torch.where(nulls, _I64_MAX, x).min()
+            hi = torch.where(nulls, _I64_MIN, x).max()
+            anyn = nulls.any().to(torch.int64)
+        else:
+            lo = x.min()
+            hi = x.max()
+            anyn = x.new_zeros(())
+        outs.append(torch.stack([lo, hi, anyn, x.new_zeros(())]))
+    return outs
+
+
+def _fetch(outs):
+    """Every stats vector to the host in one transfer (f64 vectors ride
+    as their i64 bits)."""
+    rows = torch.stack([o.view(torch.int64) if o.dtype == torch.float64
+                        else o for o in outs]).cpu().numpy()
+    return [r.view(np.float64) if o.dtype == torch.float64 else r
+            for o, r in zip(outs, rows)]
+
+
+def put_table(tbl: Obj) -> None:
+    """Pre-stage all columns of a table on the device and compute their
+    min/max stats (null/NaN-skipping) with one batched fetch."""
+    _, cols = tbl.v
+    statless = []
+    arrs = []
+    for c in cols:
+        if c.t == T.LIST or c.t < 0 or c.t in T.UNPARTED_OF:
+            continue
+        a = dev_col(c)
+        if c.t not in _STATLESS and not (
+                isinstance(c.meta, dict) and "range" in c.meta):
+            statless.append(c)
+            arrs.append(a)
+    if arrs:
+        for c, lh in zip(statless, _fetch(_k_minmax_all(arrs))):
+            _cache_stats(c, lh)
+
+
+def _cache_stats(c, lh):
+    if c.t == T.F64:
+        c.meta["range"] = (float(lh[0]), float(lh[1]))
+        c.meta["qscale"] = float(lh[3]) or None
+    else:
+        c.meta["range"] = (int(lh[0]), int(lh[1]))
+    c.meta["has_null"] = bool(lh[2])
+
+
+def _ensure_stats(col: Obj):
+    if not (isinstance(col.meta, dict) and "range" in col.meta):
+        lh = _fetch(_k_minmax_all([dev_col(col)]))[0]
+        if not isinstance(col.meta, dict):
+            col.meta = {}
+        _cache_stats(col, lh)
+
+
+def column_range(col: Obj):
+    """(min, max) of a column ignoring nulls/NaNs, cached."""
+    _ensure_stats(col)
+    return col.meta["range"]
+
+
+def column_has_null(col: Obj) -> bool:
+    _ensure_stats(col)
+    return col.meta["has_null"]
+
+
+def column_qscale(col: Obj):
+    """Decimal fixed-point scale S (1/100/1e4/1e6) such that every
+    finite value of this F64 column is (within the stats tolerance) an
+    integer multiple of 1/S with |v*S| < 2^31 — or None. Lets sort
+    engines ride the column as an exact i32 operand."""
+    if col.t != T.F64:
+        return None
+    _ensure_stats(col)
+    return col.meta.get("qscale")
