@@ -263,6 +263,9 @@ static int ew_blocks(int64_t n) {
 
 extern "C" int rf_radix_sort_tile(void) { return RS_TILE; }
 extern "C" int rf_radix_sort_state_ints(void) { return ST_INTS; }
+// offset in the state of the per-pass skip flags; pass p sorts byte p % 4
+// of key word n_keys - 1 - p / 4
+extern "C" int rf_radix_sort_skip_offset(void) { return ST_SKIP; }
 
 // words_in / words_out: host arrays of n_words device pointers to int32[n]
 // (outputs must not alias inputs). Scratch: perm_a, perm_b, val_a, val_b

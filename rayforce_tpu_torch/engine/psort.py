@@ -10,6 +10,11 @@ of lo gives unsigned order); f64 payloads travel as their i64 bits.
 unstable sort; both versions here are stable (equal keys keep their
 row order), so the output is deterministic.
 
+Every engine sort goes through here: `sort_i32` (words), `sort_mixed`
+(one key with payloads), `sort_lex` (several i32/i64/f64 keys with
+payloads: wide's multi-word keys and order carry-sort) and
+`sort_by_code` (med's (code, value) sort).
+
 On a CUDA tensor the sort launches the hand-written radix sort in
 `csrc/radix_sort.cu` (it replaces the TPU's blocked bitonic sort, both
 of its pallas_call sites); on a CPU tensor it runs `sort_i32_plain`.
@@ -37,7 +42,8 @@ def _radix_lib():
         from . import cubuild
         lib = cubuild.load("radix_sort")
         try:
-            for fn in (lib.rf_radix_sort_tile, lib.rf_radix_sort_state_ints):
+            for fn in (lib.rf_radix_sort_tile, lib.rf_radix_sort_state_ints,
+                       lib.rf_radix_sort_skip_offset):
                 fn.restype = ctypes.c_int
                 fn.argtypes = []
             lib.rf_radix_sort_i32.restype = ctypes.c_int
@@ -71,7 +77,7 @@ def _launch(lib, words, n_keys, n):
             state.data_ptr(), stream)
     if rc != 0:
         raise DeviceError(f"radix sort launch failed: cudaError {rc}")
-    return outs
+    return outs, state
 
 
 def sort_i32_plain(words, n_keys=1):
@@ -85,9 +91,13 @@ def sort_i32_plain(words, n_keys=1):
     return [w.index_select(0, perm) for w in words]
 
 
-def sort_i32_cuda(words, n_keys=1):
+def sort_i32_cuda(words, n_keys=1, skipped=None):
     """The CUDA radix sort on int32 CUDA tensors of one length. Any
-    failure to build, load, allocate or launch raises DeviceError."""
+    failure to build, load, allocate or launch raises DeviceError.
+    `skipped`, a list, receives one flag per 8-bit pass (4 per key
+    word, the last key word's low byte first): 1 where the kernel
+    skipped the pass because every row has the same digit. Reading it
+    waits for the sort."""
     lib = _radix_lib()
     n = int(words[0].shape[0])
     if n >= (1 << 31) - 1:
@@ -95,12 +105,15 @@ def sort_i32_cuda(words, n_keys=1):
     if n == 0:
         return [torch.empty_like(w) for w in words]
     try:
-        outs = _launch(lib, words, n_keys, n)
+        outs, state = _launch(lib, words, n_keys, n)
     except DeviceError:
         raise
     except Exception as e:
         raise DeviceError(f"radix sort: {type(e).__name__}: {e}") from e
     LAUNCHES["radix_sort"] += 1
+    if skipped is not None:
+        off = lib.rf_radix_sort_skip_offset()
+        skipped += state[off:off + 4 * n_keys].tolist()
     return outs
 
 
@@ -135,41 +148,81 @@ def join64(hi, lo):
     return (hi.to(torch.int64) << 32) | lo_u
 
 
+def f64_order(x):
+    """f64 (no NaN) -> i64 whose signed order is the float order (-0.0
+    just below 0.0, as lax.sort orders floats)."""
+    b = x.contiguous().view(torch.int64)
+    return torch.where(b < 0, b ^ 0x7FFFFFFFFFFFFFFF, b)
+
+
+def f64_from_order(k):
+    return torch.where(k < 0, k ^ 0x7FFFFFFFFFFFFFFF, k).view(torch.float64)
+
+
+def _words(x):
+    """The i32 words of one operand: i64 and f64 (as its i64 bits) take
+    two, anything narrower one."""
+    if x.dtype == torch.float64:
+        return list(split64(x.contiguous().view(torch.int64)))
+    if x.dtype == torch.int64:
+        return list(split64(x))
+    return [x.to(torch.int32)]
+
+
+def _unwords(out, i, x):
+    """Operand x's sorted value from its words starting at out[i]."""
+    if x.dtype in (torch.int64, torch.float64):
+        v = join64(out[i], out[i + 1])
+        return (v.view(torch.float64) if x.dtype == torch.float64 else v), 2
+    return out[i].to(x.dtype), 1
+
+
+def sort_lex(keys, ops=(), stable_iota=False):
+    """The engine's `lax.sort(keys + ops, num_keys=len(keys))` call
+    shape: keys compared lexicographically, ascending; each key is i32,
+    i64 (two words, split64) or f64 (its order-preserving i64 bits,
+    f64_order; the caller maps NaN). Carried operands are i32, i64, f64
+    or narrower. `stable_iota` appends an i32 iota as the last key word.
+    Returns (sorted keys, sorted ops)."""
+    words = []
+    for k in keys:
+        words += _words(f64_order(k) if k.dtype == torch.float64 else k)
+    n_keys = len(words)
+    if stable_iota:
+        n = int(keys[0].shape[0])
+        words.append(torch.arange(n, dtype=torch.int32,
+                                  device=keys[0].device))
+        n_keys += 1
+    for x in ops:
+        words += _words(x)
+    out = sort_i32(words, n_keys=n_keys)
+    skeys, i = [], 0
+    for k in keys:
+        if k.dtype == torch.float64:
+            skeys.append(f64_from_order(join64(out[i], out[i + 1])))
+            i += 2
+        else:
+            v, w = _unwords(out, i, k)
+            skeys.append(v)
+            i += w
+    i = n_keys
+    sops = []
+    for x in ops:
+        v, w = _unwords(out, i, x)
+        sops.append(v)
+        i += w
+    return skeys, sops
+
+
 def sort_mixed(key, ops, stable_iota=False):
     """The engine's `sort([key] + ops)` call shape: one i32/i64 key with
     carried i32/i64/f64 (or narrower) payload operands. Returns
     (sorted_key, sorted_ops)."""
-    n = int(key.shape[0])
-    words = []
-    if key.dtype == torch.int64:
-        words += list(split64(key))
-    else:
-        words.append(key.to(torch.int32))
-    n_keys = len(words)
-    if stable_iota:
-        words.append(torch.arange(n, dtype=torch.int32, device=key.device))
-        n_keys += 1
-    recipes = []          # (kind, first word index) per payload operand
-    for x in ops:
-        if x.dtype in (torch.int64, torch.float64):
-            bits = x.contiguous().view(torch.int64) \
-                if x.dtype == torch.float64 else x
-            recipes.append(("w2", len(words)))
-            words += list(split64(bits))
-        else:
-            recipes.append(("w1", len(words)))
-            words.append(x.to(torch.int32))
-    out = sort_i32(words, n_keys=n_keys)
-    if key.dtype == torch.int64:
-        skey = join64(out[0], out[1])
-    else:
-        skey = out[0].to(key.dtype)
-    souts = []
-    for (kind, i), x in zip(recipes, ops):
-        if kind == "w2":
-            v = join64(out[i], out[i + 1])
-            souts.append(v.view(torch.float64)
-                         if x.dtype == torch.float64 else v)
-        else:
-            souts.append(out[i].to(x.dtype))
-    return skey, souts
+    skeys, sops = sort_lex([key], ops, stable_iota)
+    return skeys[0], sops
+
+
+def sort_by_code(codes, key):
+    """key sorted by (codes, key) lexicographically: med's two-key sort
+    (an i32 code word, then an i32, i64 or f64 key)."""
+    return sort_lex([codes.to(torch.int32), key])[0][1]

@@ -48,7 +48,7 @@ from ..core.obj import Obj, table, DevPendingSliced
 from . import device as dev
 from . import groupby as G
 from .exprc import as_tensor, torch_dtype
-from .psort import sort_i32, sort_mixed, split64, join64
+from .psort import sort_by_code, sort_i32, sort_mixed
 
 # head/tail sort sizing (module-level so tests can shrink them to force
 # the straggler fallback). The head must make missing-group odds tiny:
@@ -88,27 +88,6 @@ def _starts(sc):
     """Run starts of a sorted code vector: True where sc changes."""
     return torch.cat([torch.ones(1, dtype=BOOL, device=sc.device),
                       sc[1:] != sc[:-1]])
-
-
-def _f64_order(x):
-    """f64 (no NaN) -> i64 whose signed order is the float order."""
-    b = x.contiguous().view(I64)
-    return torch.where(b < 0, b ^ G.KEY_MAX, b)
-
-
-def _f64_from_order(k):
-    return torch.where(k < 0, k ^ G.KEY_MAX, k).view(F64)
-
-
-def _sort_by_code(codes, mkey):
-    """mkey sorted by (codes, mkey) lexicographically: the med sort."""
-    if mkey.dtype == I32:
-        return sort_i32([codes, mkey], n_keys=2)[1]
-    f64 = mkey.dtype == F64
-    hi, lo = split64(_f64_order(mkey) if f64 else mkey)
-    _c, shi, slo = sort_i32([codes, hi, lo], n_keys=3)
-    v = join64(shi, slo)
-    return _f64_from_order(v) if f64 else v
 
 
 def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
@@ -499,7 +478,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
                 a64 = a.to(I64)
                 mkey = torch.where(a64 == int(nv), G.KEY_MAX, a64) \
                     if nv is not None else a64
-            medvals[cid] = (_sort_by_code(codes, mkey), qs)
+            medvals[cid] = (sort_by_code(codes, mkey), qs)
 
         # ---- first/last row ids ------------------------------------------
         straggler = torch.zeros((), dtype=I32, device=d)

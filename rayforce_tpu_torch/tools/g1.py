@@ -11,6 +11,34 @@ from ..engine import device as dev
 
 NAMES = ["id1", "id2", "id3", "id4", "id5", "id6", "v1", "v2", "v3"]
 
+# grouped selects over the table (bench.py q1-q7 and the other shapes
+# each engine takes), with the engine each must run: "dense"
+# (engine/select.py's dense plan: <= 512 codes, or no by), "sortagg" or
+# "wide"
+QUERIES = {
+    "q1": ("(select {s: (sum v1) from: t by: id1})", "dense"),
+    "q4": ("(select {a1: (avg v1) a2: (avg v2) a3: (avg v3) from: t "
+           "by: id4})", "dense"),
+    "med": ("(select {m: (med v3) s: (sum v2) from: t by: id4})", "dense"),
+    "no_by": ("(select {s: (sum v1) a: (avg v3) mx: (max v2) mn: (min v3) "
+              "from: t})", "dense"),
+    "small_where": ("(select {f: (first v3) l: (last v1) c: (count v2) "
+                    "from: t by: id1 where: (> v3 50.0)})", "dense"),
+    "q2": ("(select {s: (sum v1) from: t by: {id1: id1 id2: id2}})",
+           "sortagg"),
+    "q3": ("(select {s: (sum v1) a: (avg v3) from: t by: id3})", "sortagg"),
+    "q5": ("(select {s1: (sum v1) s2: (sum v2) s3: (sum v3) from: t "
+           "by: id6})", "sortagg"),
+    "q6": ("(select {mx: (max v1) mn: (min v2) from: t by: id3})",
+           "sortagg"),
+    "first_last": ("(select {f: (first v3) l: (last v1) from: t by: id3})",
+                   "sortagg"),
+    "where": ("(select {s: (sum v1) a: (avg v3) from: t by: id3 "
+              "where: (> v3 50.0)})", "sortagg"),
+    "q7": ("(select {s: (sum v3) c: (count v3) from: t by: {id1: id1 "
+           "id2: id2 id3: id3 id4: id4 id5: id5 id6: id6}})", "wide"),
+}
+
 
 def g1_table(rows, device):
     """db-benchmark G1 (K=100) on `device`, with bench.py's column specs:

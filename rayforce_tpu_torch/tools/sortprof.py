@@ -1,7 +1,9 @@
 """Where the device time goes: torch.profiler over the CUDA radix sort
-and over warm sort-agg queries on a G1 table, on one CUDA card.
+and over warm grouped selects on a G1 table (the sort-agg queries, the
+dense plan's and the wide engine's), on one CUDA card.
 
     python -m rayforce_tpu_torch.tools.sortprof [--rows N] [--out DIR]
+        [--queries q1,q7,...] [--no-sort]
 
 Prints, per profiled region, the device time by kernel name and the
 region's wall time, device-busy time and idle share, and writes the
@@ -14,14 +16,6 @@ import os
 import subprocess
 import sys
 import time
-
-QUERIES = {
-    "q2": "(select {s: (sum v1) from: t by: {id1: id1 id2: id2}})",
-    "q3": "(select {s: (sum v1) a: (avg v3) from: t by: id3})",
-    "q5": "(select {s1: (sum v1) s2: (sum v2) s3: (sum v3) from: t "
-          "by: id6})",
-    "q6": "(select {mx: (max v1) mn: (min v2) from: t by: id3})",
-}
 
 
 def _device_kernels(prof):
@@ -72,6 +66,10 @@ def main(argv=None):
     ap.add_argument("--rows", type=int, default=10_000_000)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default="")
+    ap.add_argument("--queries", default="q2,q3,q5,q6",
+                    help="comma-separated names of tools.g1.QUERIES")
+    ap.add_argument("--no-sort", action="store_true",
+                    help="skip the radix sort's own profiles")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -86,13 +84,13 @@ def main(argv=None):
     from rayforce_tpu_torch.core import symbols
     from rayforce_tpu_torch.engine import device as dev, psort
     from rayforce_tpu_torch.engine import select as sel
-    from .g1 import g1_table
+    from .g1 import QUERIES, g1_table
     dev.set_device("cuda")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     n = args.rows
-    for n_words in (1, 2, 3):
+    for n_words in () if args.no_sort else (1, 2, 3):
         words = [torch.randint(0, 1 << 20, (n,), generator=gen,
                                device="cuda", dtype=torch.int32)
                  for _ in range(n_words)]
@@ -102,10 +100,14 @@ def main(argv=None):
 
     rt = Runtime()
     rt.interp.globals[symbols.intern("t")] = g1_table(n, "cuda")
-    for name, q in QUERIES.items():
+    for name in args.queries.split(","):
+        q = QUERIES[name][0]
         rt.eval_str(q)
         _profile(name, lambda: rt.eval_str(q), args.reps, args.out)
-        print(f"   exec_ms (last run) {sel.last_profile['exec_ms']:.3f}")
+        p = sel.last_profile
+        ms = p["exec_ms"] if "exec_ms" in p else \
+            p["dispatch_ms"] + p["exec+fetch_ms"]
+        print(f"   exec_ms (last run) {ms:.3f}")
     return 0
 
 

@@ -22,7 +22,8 @@ def _port_files():
 
 def test_import_loads_no_jax():
     code = ("import sys, rayforce_tpu_torch, rayforce_tpu_torch.engine."
-            "select, rayforce_tpu_torch.engine.sortagg\n"
+            "select, rayforce_tpu_torch.engine.sortagg, "
+            "rayforce_tpu_torch.engine.wide, rayforce_tpu_torch.entry\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"

@@ -6,7 +6,11 @@ version, the one the CUDA radix sort is held against on the card.
   small cases (n=977 and 4096 with 2^10-element blocks, so phase B's
   cross-block passes run);
 - against numpy at larger n: heavy ties, INT32_MAX keys, two-key lex,
-  and an i64 key carrying f64 + i64 payloads;
+  4 and 6 key words (the wide engine's), and an i64 key carrying f64 +
+  i64 payloads;
+- against lax.sort on the wide engine's two-i64-word key sort and on
+  med's (code, value) sort with an f64 key (NaN mapped to +inf, ±inf,
+  ±0.0);
 - split64/join64 round trips at the i64 extremes.
 
 Keys must match exactly. The port's sort is stable, so every word
@@ -161,3 +165,93 @@ def test_other_devices_raise():
     w = torch.zeros(8, dtype=torch.int32, device="meta")
     with pytest.raises(DeviceError):
         psort.sort_i32([w])
+
+
+@pytest.mark.parametrize("n_keys", [4, 6])
+@pytest.mark.parametrize("case", ["random", "ties", "extremes"])
+def test_many_key_words_against_numpy(n_keys, case):
+    """4 and 6 key words (wide's two and three i64 key words) with
+    payload words, against a stable numpy lexsort."""
+    rng = np.random.default_rng(n_keys * 10 + len(case))
+    n = 30_011
+    if case == "random":
+        ks = [rng.integers(-2**31, I32_MAX, n, endpoint=True)
+              .astype(np.int32) for _ in range(n_keys)]
+    elif case == "ties":
+        ks = [rng.integers(-2, 2, n).astype(np.int32)
+              for _ in range(n_keys)]
+    else:
+        ks = [rng.choice(np.array([-2**31, -1, 0, I32_MAX], np.int32), n)
+              for _ in range(n_keys)]
+    pay = [np.arange(n, dtype=np.int32),
+           rng.integers(-2**31, I32_MAX, n).astype(np.int32)]
+    p = _np(psort.sort_i32([_t(x) for x in ks + pay], n_keys=n_keys))
+    order = np.lexsort(ks[::-1])
+    for got, want in zip(p, ks + pay):
+        assert np.array_equal(got, want[order])
+
+
+def test_sort_lex_i64_keys_match_lax_sort():
+    """Wide's key sort: two non-negative i64 key words (4 i32 words)
+    carrying f64 and i32 operands, against lax.sort on the same keys
+    (unique keys: the row position rides the last word)."""
+    import jax
+    rng = np.random.default_rng(8)
+    n = 5003
+    w0 = rng.integers(0, 2**45, n).astype(np.int64)
+    w0[::7] |= np.int64(1) << 61                   # trash bit
+    w0[1::5] = w0[0]
+    w1 = (rng.integers(0, 2**17, n).astype(np.int64) << 24) | np.arange(n)
+    f = rng.uniform(-1, 1, n)
+    q = rng.integers(-2**31, I32_MAX, n).astype(np.int32)
+    want = jax.lax.sort([jnp.asarray(x) for x in (w0, w1, f, q)],
+                        num_keys=2)
+    (s0, s1), (sf, sq) = psort.sort_lex([_t(w0), _t(w1)], [_t(f), _t(q)])
+    for got, w in zip((s0, s1, sf, sq), want):
+        assert np.array_equal(got.numpy(), np.asarray(w))
+
+
+def test_med_shape_f64_key_matches_lax_sort():
+    """med's (code, value) sort: an i32 code word, then an f64 key with
+    nulls (NaN) mapped to +inf by the caller, holding -inf, -0.0, 0.0
+    and +inf: three key words through the entry. The sorted keys equal
+    lax.sort's as floats (its CPU compare ties -0.0 with 0.0); the
+    port's order is the IEEE total order, -0.0 before 0.0."""
+    import jax
+    rng = np.random.default_rng(12)
+    n = 20_000
+    codes = rng.integers(0, 513, n).astype(np.int32)
+    v = rng.choice(np.array([-0.0, 0.0, np.inf, -np.inf, np.nan, 1.5,
+                             -2.25]), n)
+    v[::3] = rng.uniform(-1e9, 1e9, len(v[::3]))
+    key = np.where(np.isnan(v), np.inf, v)
+    calls = []
+    plain = psort.sort_i32_plain
+
+    def counting(words, n_keys=1):
+        calls.append(n_keys)
+        return plain(words, n_keys)
+
+    psort.sort_i32_plain = counting
+    try:
+        got = psort.sort_by_code(_t(codes), _t(key)).numpy()
+    finally:
+        psort.sort_i32_plain = plain
+    assert calls == [3]
+    _c, want = jax.lax.sort([jnp.asarray(codes), jnp.asarray(key)],
+                            num_keys=2)
+    assert np.array_equal(got, np.asarray(want))
+    bits = key.view(np.int64)
+    total = np.where(bits < 0, bits ^ np.int64(2**63 - 1), bits)
+    assert np.array_equal(got.view(np.int64),
+                          bits[np.lexsort((total, codes))])
+
+
+def test_med_shape_i64_key_against_numpy():
+    rng = np.random.default_rng(13)
+    n = 20_000
+    codes = rng.integers(0, 100, n).astype(np.int32)
+    key = rng.integers(-2**63, 2**63 - 1, n, endpoint=True).astype(np.int64)
+    key[::5] = np.iinfo(np.int64).max
+    got = psort.sort_by_code(_t(codes), _t(key)).numpy()
+    assert np.array_equal(got, key[np.lexsort((key, codes))])
