@@ -15,12 +15,21 @@ Phases, each reported on its own line:
              payloads; the wide engine's shapes, 4 and 6 key words
              (random, tied, signed-i32 extremes) carrying f64 + i64
              payloads; the med shape, an i32 code word then an i64 key
-             (or an f64 key as order-preserving bits). Every word must
-             be equal (the sort is stable). Then the kernel's, the plain
-             version's and torch.sort + gather's times at the sort-agg
-             path's shape, and the kernel's and the plain version's at
-             the wide key sort's (q7's key words on the G1 table), with
-             the passes the kernel skipped;
+             (or an f64 key as order-preserving bits); then the cases
+             that stress the one-sweep design: n from 1 through the
+             one-block route's edge and tile edges to 2^24 + 5 (long
+             look-back chains), a misaligned view, all keys equal (every
+             pass skipped), the key-only routes, the permutation return,
+             both routes for payload words, and back-to-back sorts of
+             different data on one stream. Every word must be equal
+             (the sort is stable). Then, at each main-path sort shape
+             (1e7 x 1 key-only word, 1e7 x 1 key + 1 or 2 payload
+             words, the wide q7 key sort, the med sort, the 1e5-row
+             order sort with its permutation), one [sort_time] line:
+             the kernel's, the plain version's and the library call's
+             times (torch.sort(...).values, torch.sort + index_select,
+             or none), each route's time, the byte bound and the
+             passes the kernel skipped;
 4. main path the db-benchmark G1_1e7_1e2 table (1e7 rows, K=100) made
              on the card from a seeded torch.Generator, and the grouped
              selects of every engine through Runtime().eval_str: bench
@@ -32,7 +41,9 @@ Phases, each reported on its own line:
              port's host path on the same table (keys, order, counts and
              integer lanes exactly, f64 lanes within rtol 1e-9: the
              summation order differs) and the next card run bit for
-             bit. Then each query's warm median exec_ms over 3 runs;
+             bit. A [sort_shapes] line counts the main path's sort
+             launches per (rows, key words, words). Then each query's
+             warm median exec_ms over 3 runs;
 5. entry     the flagship step (rayforce_tpu_torch/entry.py) on the card
              against the same step on the CPU;
 6. report    one JSON line with every kernel's numbers, then the result
@@ -126,6 +137,84 @@ def _check_words(psort, torch, words, n_keys, what):
     return err
 
 
+def check_edges(psort, torch, gen):
+    """The cases that stress the one-sweep design, each against the plain
+    version: n from 1 through the one-block route's edge and tile edges
+    to 2^24 + 5 rows (long look-back chains), a misaligned input view,
+    all keys equal (every pass skipped), the key-only routes (1 and 2
+    words), the permutation return, both routes (every word carried, or
+    row ids carried and the rest gathered), and back-to-back sorts of
+    different data on one stream.
+    Returns the number of cases."""
+    dev = torch.device("cuda")
+    tile, small = psort._radix_lib().rf_radix_sort_tile(), \
+        psort._radix_lib().rf_radix_sort_small_max()
+    cases = 0
+
+    def check(words, n_keys, what, perm=False, route=-1):
+        got = psort.sort_i32_cuda(words, n_keys, perm=perm, route=route)
+        want = psort.sort_i32_plain(words, n_keys, perm=perm)
+        if perm:
+            got = got[0] + [got[1]]
+            want = want[0] + [want[1]]
+        torch.cuda.synchronize()
+        if max_abs_err(got, want):
+            raise AssertionError(f"radix sort differs: {what}")
+
+    sizes = (1, 2, tile - 1, tile, tile + 1, small, small + 1,
+             3 * tile + 1, (1 << 24) + 5)
+    for n in sizes:
+        k = _key_words(torch, gen, dev, n, 1, "random")[0]
+        t = _key_words(torch, gen, dev, n, 2, "ties")
+        pay = torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        check([k], 1, f"n={n} key-only 1 word")
+        check(t, 2, f"n={n} key-only 2 words, ties")
+        check([k, t[0]], 2, f"n={n} key-only 2 words, random")
+        for route in (0, 1):      # carry every word / carry row ids
+            check([k, pay], 1, f"n={n} 1 key + payload, route {route}",
+                  route=route)
+            check([t[0], pay], 1, f"n={n} permutation, route {route}",
+                  perm=True, route=route)
+            check(t + [pay, k], 2, f"n={n} 2 keys + 2 payload words, "
+                  f"route {route}", route=route)
+        cases += 9
+    # a view 4 bytes past an aligned address: 16-byte loads start later
+    n = 3 * tile + 7
+    base = torch.randint(-2**31, 2**31 - 1, (n + 1,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    check([base[1:]], 1, "misaligned key-only")
+    check([base[1:], base[:-1]], 1, "misaligned with payload")
+    # all keys equal: every pass skipped, the outputs are the inputs
+    for n in (5, small + 3, 1 << 20):
+        same = torch.full((n,), -7, device=dev, dtype=torch.int32)
+        pay = torch.arange(n, device=dev, dtype=torch.int32)
+        skipped = []
+        psort.sort_i32_cuda([same, same, pay], 2, skipped=skipped)
+        if skipped != [1] * 8:
+            raise AssertionError(f"all-equal keys ran passes: {skipped}")
+        check([same], 1, f"n={n} all keys equal, key-only")
+        for route in (0, 1):
+            check([same, same, pay], 2, f"n={n} all keys equal, route "
+                  f"{route}", route=route)
+            check([same, pay], 1, f"n={n} all keys equal, permutation, "
+                  f"route {route}", perm=True, route=route)
+        cases += 5
+    # back to back on one stream: the second must not see the first's
+    # look-back state
+    n = (1 << 22) + 3
+    a = _key_words(torch, gen, dev, n, 2, "random")
+    b = _key_words(torch, gen, dev, n, 2, "ties")
+    ga = psort.sort_i32_cuda(a, 1)
+    gb = psort.sort_i32_cuda(b, 1)
+    gc = psort.sort_i32_cuda(a, 2)
+    torch.cuda.synchronize()
+    for got, words, nk in ((ga, a, 1), (gb, b, 1), (gc, a, 2)):
+        if max_abs_err(got, psort.sort_i32_plain(words, nk)):
+            raise AssertionError("back-to-back sorts differ")
+    return cases + 3
+
+
 def check_sort(psort, torch, gen):
     """The CUDA sort against its plain version; returns the largest
     difference seen (must be 0) and the number of cases."""
@@ -191,50 +280,103 @@ def check_sort(psort, torch, gen):
     return worst, cases
 
 
-def time_sort(psort, torch, gen, n_words):
-    """(kernel ms, plain ms, torch.sort + gather ms, bound ms) for one
-    key word and n_words - 1 payload words at ROWS rows."""
-    dev = torch.device("cuda")
-    words = [torch.randint(0, 100_000, (ROWS,), generator=gen, device=dev,
-                           dtype=torch.int32)]
-    words += [torch.randint(-2**31, 2**31 - 1, (ROWS,), generator=gen,
-                            device=dev, dtype=torch.int32)
-              for _ in range(n_words - 1)]
-
-    def library():
-        idx = torch.sort(words[0], stable=True).indices
-        return [w.index_select(0, idx) for w in words[1:]]
-
-    ms = [cuda_ms(lambda: psort.sort_i32_cuda(words, 1)),
-          cuda_ms(lambda: psort.sort_i32_plain(words, 1)),
-          cuda_ms(library)]
-    bound = 2 * ROWS * n_words * 4 / HBM_BYTES_PER_S * 1e3
-    return ms + [bound]
-
-
-def time_wide_sort(psort, torch, gen):
-    """The wide engine's key sort of q7 at ROWS rows: the two i64 key
-    words that engine/wide.py packs from G1's six keys (id1, id2, id3,
-    id4, id5 in word 0; id6 and the row position in word 1), as 4 i32
-    key words, plus one payload word (v3 as its q32 operand). Returns
-    (kernel ms, plain ms, bound ms, skipped pass flags)."""
+def _wide_words(psort, torch, gen, rows):
+    """q7's key sort at `rows` rows: the two i64 key words that
+    engine/wide.py packs from G1's six keys (id1, id2, id3, id4, id5 in
+    word 0; id6 and the row position in word 1), as 4 i32 key words,
+    plus one payload word (v3 as its q32 operand)."""
     dev = torch.device("cuda")
 
     def ids(hi):
-        return torch.randint(0, hi, (ROWS,), generator=gen, device=dev,
+        return torch.randint(0, hi, (rows,), generator=gen, device=dev,
                              dtype=torch.int64)
     w0 = (ids(100) << 38) | (ids(100) << 31) | (ids(100_000) << 14) | \
         (ids(100) << 7) | ids(100)
-    w1 = (ids(100_000) << 24) | torch.arange(ROWS, device=dev)
-    words = list(psort.split64(w0)) + list(psort.split64(w1)) + \
-        [torch.randint(0, 100_000_000, (ROWS,), generator=gen, device=dev,
+    w1 = (ids(100_000) << 24) | torch.arange(rows, device=dev)
+    return list(psort.split64(w0)) + list(psort.split64(w1)) + \
+        [torch.randint(0, 100_000_000, (rows,), generator=gen, device=dev,
                        dtype=torch.int32)]
-    skipped = []
-    psort.sort_i32_cuda(words, 4, skipped=skipped)
-    ms = cuda_ms(lambda: psort.sort_i32_cuda(words, 4))
-    plain = cuda_ms(lambda: psort.sort_i32_plain(words, 4))
-    bound = 2 * ROWS * len(words) * 4 / HBM_BYTES_PER_S * 1e3
-    return ms, plain, bound, skipped
+
+
+def sort_shapes(psort, torch, gen):
+    """The main path's sort shapes at full size: [(name, rows, words,
+    n_keys, perm, library call or None)]."""
+    dev = torch.device("cuda")
+    rows = ROWS
+
+    def rnd(n, lo=-2**31, hi=2**31 - 1):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    key = rnd(rows, 0, 100_000)       # sort-agg's packed key: < 10^5
+    p1, p2 = rnd(rows), rnd(rows)
+
+    def sort_gather(k, pays):
+        def f():
+            v, idx = torch.sort(k, stable=True)
+            return [v] + [x.index_select(0, idx) for x in pays]
+        return f
+    # med: an i32 code word (id4's 100 codes), then v3 as f64 order bits
+    codes = rnd(rows, 0, 100)
+    v3 = torch.rand(rows, generator=gen, device=dev,
+                    dtype=torch.float64) * 100
+    med = [codes] + list(psort.split64(psort.f64_order(v3)))
+    # sort-agg's first-appearance order sort: 10^5 first-row ids (i64)
+    fidx = torch.randperm(rows, generator=gen, device=dev)[:100_000]
+    order = list(psort.split64(fidx))
+    return [
+        ("key_only_1w", rows, [key], 1, False,
+         lambda: torch.sort(key).values),
+        ("sortagg_2w", rows, [key, p1], 1, False, sort_gather(key, [p1])),
+        ("sortagg_3w", rows, [key, p1, p2], 1, False,
+         sort_gather(key, [p1, p2])),
+        ("wide_q7", rows, _wide_words(psort, torch, gen, rows), 4, False,
+         None),
+        ("med", rows, med, 3, False, None),
+        ("order_1e5", 100_000, order, 2, True,
+         lambda: torch.sort(fidx, stable=True)),
+    ]
+
+
+def time_sorts(psort, torch, gen):
+    """Kernel, plain and library ms (CUDA events, median of 11) and the
+    byte bound at each main-path shape, with the passes the kernel
+    skipped, and the kernel's time on each of its two routes where the
+    shape has a payload or a permutation (carry_ms: every word carried
+    through the passes; id_ms: row ids carried, the rest gathered). Each
+    kernel output equals the plain version's."""
+    out = []
+    for name, rows, words, nk, perm, lib in sort_shapes(psort, torch, gen):
+        skipped = []
+        got = psort.sort_i32_cuda(words, nk, skipped=skipped, perm=perm)
+        want = psort.sort_i32_plain(words, nk, perm=perm)
+        if perm:
+            got, want = got[0] + [got[1]], want[0] + [want[1]]
+        if max_abs_err(got, want):
+            raise AssertionError(f"radix sort differs at shape {name}")
+        r = {"shape": name, "rows": rows, "words": len(words),
+             "key_words": nk,
+             "ms": cuda_ms(lambda: psort.sort_i32_cuda(words, nk,
+                                                       perm=perm)),
+             "plain_ms": cuda_ms(lambda: psort.sort_i32_plain(words, nk,
+                                                              perm=perm)),
+             "library_ms": cuda_ms(lib) if lib else None}
+        if len(words) > 1 or perm:
+            for key, route in (("carry_ms", 0), ("id_ms", 1)):
+                got = psort.sort_i32_cuda(words, nk, perm=perm, route=route)
+                if perm:
+                    got = got[0] + [got[1]]
+                if max_abs_err(got, want):
+                    raise AssertionError(f"radix sort differs at shape "
+                                         f"{name}, route {route}")
+                r[key] = cuda_ms(lambda: psort.sort_i32_cuda(
+                    words, nk, perm=perm, route=route))
+        out_words = len(words) + (1 if perm else 0)
+        r["bound_ms"] = (len(words) + out_words) * rows * 4 / \
+            HBM_BYTES_PER_S * 1e3
+        r["skipped_passes"] = sum(skipped)
+        r["skip_flags"] = "".join(str(int(x)) for x in skipped)
+        out.append(r)
+    return out
 
 
 def _engine(sel, before):
@@ -255,7 +397,8 @@ def main_path(rows, device):
     """Drive the grouped selects through the port's Runtime on a G1 table
     and hold each against the host path and against a second card run.
     Returns (launches of the main path's run, launches per query, warm
-    median exec_ms per query)."""
+    median exec_ms per query, calls of the sort per (rows, key words,
+    words) in that run)."""
     import torch
     from rayforce_tpu_torch import Runtime
     from rayforce_tpu_torch.core import symbols
@@ -275,18 +418,30 @@ def main_path(rows, device):
 
     per_query = {}
     results = {}
+    shapes = {}
+    real = psort.sort_i32_cuda
+
+    def recording(words, n_keys=1, skipped=None, perm=False):
+        k = (int(words[0].shape[0]), n_keys, len(words))
+        shapes[k] = shapes.get(k, 0) + 1
+        return real(words, n_keys, skipped, perm)
+
+    psort.sort_i32_cuda = recording
     psort.LAUNCHES["radix_sort"] = 0
-    for name, (q, engine) in QUERIES.items():
-        before = psort.LAUNCHES["radix_sort"]
-        cached = set(sel._plan_cache)
-        sel.last_profile.clear()
-        results[name] = rt.eval_str(q)
-        got = _engine(sel, cached)
-        if got != engine:
-            raise AssertionError(f"{name}: engine {got}, not {engine}")
-        per_query[name] = psort.LAUNCHES["radix_sort"] - before
-        if per_query[name] <= 0:
-            raise AssertionError(f"{name}: the CUDA sort never launched")
+    try:
+        for name, (q, engine) in QUERIES.items():
+            before = psort.LAUNCHES["radix_sort"]
+            cached = set(sel._plan_cache)
+            sel.last_profile.clear()
+            results[name] = rt.eval_str(q)
+            got = _engine(sel, cached)
+            if got != engine:
+                raise AssertionError(f"{name}: engine {got}, not {engine}")
+            per_query[name] = psort.LAUNCHES["radix_sort"] - before
+            if per_query[name] <= 0:
+                raise AssertionError(f"{name}: the CUDA sort never launched")
+    finally:
+        psort.sort_i32_cuda = real
     if device == "cuda":
         torch.cuda.synchronize()
     launches = psort.LAUNCHES["radix_sort"]
@@ -316,7 +471,7 @@ def main_path(rows, device):
         exec_ms[name] = statistics.median(runs)
         phase("exec_ms", query=name, engine=engine, median_ms=exec_ms[name],
               runs=runs, bit_identical=True)
-    return launches, per_query, exec_ms
+    return launches, per_query, exec_ms, shapes
 
 
 def _columns(tbl, name):
@@ -415,28 +570,28 @@ def main():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     err, cases = check_sort(psort, torch, gen)
+    cases += check_edges(psort, torch, gen)
     phase("kernels", radix_sort="equal", sizes=list(SORT_SIZES),
           cases=cases, max_abs_err=err)
-    times = {w: time_sort(psort, torch, gen, w) for w in (2, 3)}
-    for w, (ms, plain, lib, bound) in times.items():
-        phase("sort_time", rows=ROWS, words=w, ms=ms, plain_ms=plain,
-              torch_sort_gather_ms=lib, bound_ms=bound)
-    wms, wplain, wbound, skipped = time_wide_sort(psort, torch, gen)
-    phase("sort_time", shape="wide_q7", rows=ROWS, key_words=4, words=5,
-          ms=wms, plain_ms=wplain, library_ms="none", bound_ms=wbound,
-          skipped_passes=sum(skipped), skip_flags=skipped)
+    times = time_sorts(psort, torch, gen)
+    for r in times:
+        phase("sort_time", **r)
 
     # 4. the main path at full size
-    main_launches, per_query, _exec_ms = main_path(ROWS, "cuda")
+    main_launches, per_query, _exec_ms, shapes = main_path(ROWS, "cuda")
     phase("main_path", launches=main_launches,
           per_query=json.dumps(per_query, separators=(",", ":")))
+    phase("sort_shapes", calls=json.dumps(
+        [{"rows": n, "key_words": k, "words": m, "launches": c}
+         for (n, k, m), c in sorted(shapes.items())],
+        separators=(",", ":")))
 
     # 5. the flagship step
     lanes = check_entry(torch)
     phase("entry", lanes=lanes, card_equals_cpu=True)
 
     # 6. report
-    ms, plain, lib, bound = times[2]
+    main = next(r for r in times if r["shape"] == "sortagg_2w")
     kernels = [{
         "name": "radix_sort",
         "route": "cuda",
@@ -446,11 +601,11 @@ def main():
                     "(_window_pass_kernel)",
         "launches": main_launches,
         "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain,
-        "bound_ms": bound,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": lib,
+        "library_ms": main["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

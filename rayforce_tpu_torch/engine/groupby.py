@@ -190,9 +190,7 @@ def bcast_scan(codes, n: int, n_rows: int, sums=(), mins=(), maxs=(),
     if fsums:
         # rows in code order (stable: row order within a code), then
         # each code's total sits on its last sorted row
-        (sc,), (perm,) = sort_lex(
-            [c.to(torch.int32)],
-            [torch.arange(n_rows, dtype=torch.int32, device=dv)])
+        (sc,), _, perm = sort_lex([c.to(torch.int32)], perm=True)
         perm = perm.long()
         ends = torch.clamp(torch.cumsum(cnt, 0)[:n] - 1, min=0)
         empty = cnt[:n] == 0

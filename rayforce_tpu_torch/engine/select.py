@@ -40,7 +40,7 @@ from ..core.obj import Obj, to_np, table, enum_domain
 from . import device as dev
 from . import groupby as G
 from .exprc import as_tensor, compile_expr, split_aggregate
-from .psort import sort_by_code, sort_mixed
+from .psort import argsort, sort_by_code
 
 _plan_cache: dict = {}
 
@@ -449,8 +449,7 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
         # i32 word (row ids < 2^31 - 1; empty groups hold KEY_MAX, here
         # INT32_MAX, and sort last)
         fkey = torch.clamp(fidx, max=(1 << 31) - 1).to(I32)
-        ordi = sort_mixed(fkey, [torch.arange(NC, dtype=I32, device=d)]
-                          )[1][0].long()
+        ordi = argsort(fkey)
         n_occ = (counts > 0).sum().to(I32)
 
         P = G.Packer()

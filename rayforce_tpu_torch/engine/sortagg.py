@@ -48,7 +48,7 @@ from ..core.obj import Obj, table, DevPendingSliced
 from . import device as dev
 from . import groupby as G
 from .exprc import as_tensor, torch_dtype
-from .psort import sort_by_code, sort_i32, sort_mixed
+from .psort import argsort, sort_by_code, sort_i32, sort_mixed
 
 # head/tail sort sizing (module-level so tests can shrink them to force
 # the straggler fallback). The head must make missing-group odds tiny:
@@ -520,7 +520,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
 
         # ---- first-appearance ordering -----------------------------------
         fkey = torch.where(occ, fidx, G.KEY_MAX)
-        ordi = sort_mixed(fkey, [iota(NCAP)])[1][0].long()
+        ordi = argsort(fkey)
 
         def order(x):
             return x[ordi]

@@ -3,7 +3,14 @@ and over warm grouped selects on a G1 table (the sort-agg queries, the
 dense plan's and the wide engine's), on one CUDA card.
 
     python -m rayforce_tpu_torch.tools.sortprof [--rows N] [--out DIR]
-        [--queries q1,q7,...] [--no-sort]
+        [--queries q1,q7,...] [--no-sort] [--no-queries]
+
+The sort is profiled at the main path's shapes: one key word alone (the
+compaction sorts' key-only route), one key word with one and with two
+payload words (sort-agg's main sort; keys below 10^5), and wide's four
+key words with one payload word (q7). For each it prints the device
+time of every launch of one sort in order (memset, histogram, plan,
+each pass, gathers) and the sums by kernel name.
 
 Prints, per profiled region, the device time by kernel name and the
 region's wall time, device-busy time and idle share, and writes the
@@ -12,9 +19,11 @@ Chrome traces under --out. Numbers are only meaningful on the card.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -46,6 +55,48 @@ def _report(tag, prof, wall_ms, reps, out):
         prof.export_chrome_trace(os.path.join(out, f"{tag}.json"))
 
 
+def _launch_split(fn):
+    """[(kernel or memset name, device us)] of one call of fn, in launch
+    order, from the profiler's trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    rows = sorted((e["ts"], e["name"], e["dur"]) for e in events
+                  if e.get("cat") in ("kernel", "gpu_memset")
+                  and "dur" in e)
+    return [(name, dur) for _ts, name, dur in rows]
+
+
+def _sort_shapes(torch, psort, n):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+
+    def rnd(lo, hi, dtype=torch.int32):
+        return torch.randint(lo, hi, (n,), generator=gen, device="cuda",
+                             dtype=dtype)
+    key = rnd(0, 100_000)
+    p1, p2 = rnd(-2**31, 2**31 - 1), rnd(-2**31, 2**31 - 1)
+    w0 = (rnd(0, 100, torch.int64) << 38) | \
+        (rnd(0, 100, torch.int64) << 31) | \
+        (rnd(0, 100_000, torch.int64) << 14) | \
+        (rnd(0, 100, torch.int64) << 7) | rnd(0, 100, torch.int64)
+    w1 = (rnd(0, 100_000, torch.int64) << 24) | \
+        torch.arange(n, device="cuda")
+    wide = list(psort.split64(w0)) + list(psort.split64(w1)) + \
+        [rnd(0, 100_000_000)]
+    return [("key_only_1w", [key], 1), ("sortagg_2w", [key, p1], 1),
+            ("sortagg_3w", [key, p1, p2], 1), ("wide_q7", wide, 4)]
+
+
 def _profile(tag, fn, reps, out):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -70,6 +121,8 @@ def main(argv=None):
                     help="comma-separated names of tools.g1.QUERIES")
     ap.add_argument("--no-sort", action="store_true",
                     help="skip the radix sort's own profiles")
+    ap.add_argument("--no-queries", action="store_true",
+                    help="skip the grouped selects")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -87,16 +140,19 @@ def main(argv=None):
     from .g1 import QUERIES, g1_table
     dev.set_device("cuda")
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
     n = args.rows
-    for n_words in () if args.no_sort else (1, 2, 3):
-        words = [torch.randint(0, 1 << 20, (n,), generator=gen,
-                               device="cuda", dtype=torch.int32)
-                 for _ in range(n_words)]
-        _profile(f"radix_sort_{n_words}w",
-                 lambda: psort.sort_i32_cuda(words, 1), args.reps,
-                 args.out)
+    for tag, words, nk in () if args.no_sort else \
+            _sort_shapes(torch, psort, n):
+        def run():
+            return psort.sort_i32_cuda(words, nk)
+        split = _launch_split(run)
+        print(f"== radix_sort {tag}: {len(split)} launches, "
+              f"{sum(d for _n, d in split) / 1e3:.4f} ms device")
+        for name, dur in split:
+            print(f"   {dur:9.2f} us  {name[:90]}")
+        _profile(f"radix_sort_{tag}", run, args.reps, args.out)
+    if args.no_queries:
+        return 0
 
     rt = Runtime()
     rt.interp.globals[symbols.intern("t")] = g1_table(n, "cuda")

@@ -123,9 +123,9 @@ def test_dense_sorts_through_the_psort_entry(parity):
     calls = []
     plain = psort.sort_i32_plain
 
-    def counting(words, n_keys=1):
+    def counting(words, n_keys=1, perm=False):
         calls.append(n_keys)
-        return plain(words, n_keys)
+        return plain(words, n_keys, perm=perm)
 
     psort.sort_i32_plain = counting
     try:
@@ -134,7 +134,8 @@ def test_dense_sorts_through_the_psort_entry(parity):
         psort.sort_i32_plain = plain
     # two med (code, value) sorts: i32 code + i32 key, i32 code + f64
     # key as two words; the order sort: first-row ids as one i32 word
-    # (+ iota payload); no f64 sum lane, so no code sort for one
+    # (the permutation comes back from the sort); no f64 sum lane, so no
+    # code sort for one
     assert sorted(calls) == [1, 2, 3]
 
 

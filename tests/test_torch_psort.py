@@ -228,9 +228,9 @@ def test_med_shape_f64_key_matches_lax_sort():
     calls = []
     plain = psort.sort_i32_plain
 
-    def counting(words, n_keys=1):
+    def counting(words, n_keys=1, perm=False):
         calls.append(n_keys)
-        return plain(words, n_keys)
+        return plain(words, n_keys, perm=perm)
 
     psort.sort_i32_plain = counting
     try:
@@ -255,3 +255,108 @@ def test_med_shape_i64_key_against_numpy():
     key[::5] = np.iinfo(np.int64).max
     got = psort.sort_by_code(_t(codes), _t(key)).numpy()
     assert np.array_equal(got, key[np.lexsort((key, codes))])
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 977])
+@pytest.mark.parametrize("width", ["i32", "i64"])
+def test_key_only_shapes(n, width):
+    """The key-only call shapes (the compaction sorts: one i32 word; the
+    head and tail sorts: one i64 key, no payload) through sort_i32 and
+    sort_mixed(key, []), with ties and the signed extremes."""
+    rng = np.random.default_rng(n + len(width))
+    if width == "i32":
+        k = rng.choice(np.array([-2**31, -1, 0, 5, I32_MAX], np.int32), n)
+        got = psort.sort_i32([_t(k)])
+        assert len(got) == 1 and got[0].dtype == torch.int32
+        assert np.array_equal(got[0].numpy(), np.sort(k, kind="stable"))
+    else:
+        ext = np.array([np.iinfo(np.int64).min, -2**32, -1, 0, 2**31,
+                        np.iinfo(np.int64).max], np.int64)
+        k = rng.choice(ext, n)
+        got, ops = psort.sort_mixed(_t(k), [])
+        assert ops == [] and got.dtype == torch.int64
+        assert np.array_equal(got.numpy(), np.sort(k, kind="stable"))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 977, 30_011])
+def test_permutation_return_matches_stable_argsort(n):
+    """perm=True returns the sort's own permutation (sorted row i came
+    from row perm[i]): numpy's stable argsort, for one i32 word, an i64
+    key through sort_lex, two key words with a payload, and argsort."""
+    rng = np.random.default_rng(n)
+    k = rng.integers(-3, 3, n).astype(np.int32)
+    k[::7] = I32_MAX
+    k[1::11] = -2**31
+    words, perm = psort.sort_i32([_t(k)], perm=True)
+    want = np.argsort(k, kind="stable")
+    assert perm.dtype == torch.int32
+    assert np.array_equal(perm.numpy(), want)
+    assert np.array_equal(words[0].numpy(), k[want])
+
+    k64 = rng.integers(-2**40, 2**40, n).astype(np.int64)
+    k64[::3] = np.iinfo(np.int64).min
+    (sk,), sops, perm = psort.sort_lex([_t(k64)], perm=True)
+    want = np.argsort(k64, kind="stable")
+    assert sops == [] and np.array_equal(perm.numpy(), want)
+    assert np.array_equal(sk.numpy(), k64[want])
+    assert np.array_equal(psort.argsort(_t(k64)).numpy(), want)
+
+    k2 = rng.integers(0, 4, n).astype(np.int32)
+    v = rng.integers(-2**31, I32_MAX, n).astype(np.int32)
+    words, perm = psort.sort_i32([_t(k), _t(k2), _t(v)], n_keys=2,
+                                 perm=True)
+    want = np.lexsort((k2, k))
+    assert np.array_equal(perm.numpy(), want)
+    for got, x in zip(words, (k, k2, v)):
+        assert np.array_equal(got.numpy(), x[want])
+
+
+def _extern_c_signatures():
+    """{name: (return kind, [argument kinds])} of every extern "C"
+    function in csrc/radix_sort.cu; a kind is 'ptr', 'i64' or 'i32'."""
+    import os
+    import re
+    src = os.path.join(os.path.dirname(psort.__file__), "csrc",
+                       "radix_sort.cu")
+    text = open(src).read()
+
+    def kind(decl):
+        decl = decl.strip()
+        if "*" in decl:
+            return "ptr"
+        if re.match(r"(const\s+)?(int64_t|long long)\b", decl):
+            return "i64"
+        if re.match(r"(const\s+)?(int|int32_t)\b", decl):
+            return "i32"
+        raise AssertionError(f"unknown C type: {decl!r}")
+
+    sigs = {}
+    for m in re.finditer(r'extern\s+"C"\s+([\w\s\*]+?)\s*\b(rf_\w+)\s*'
+                         r'\(([^)]*)\)', text):
+        ret, name, args = m.groups()
+        args = args.strip()
+        kinds = [] if args in ("", "void") else \
+            [kind(a) for a in args.split(",")]
+        sigs[name] = (kind(ret), kinds)
+    return sigs
+
+
+def test_argtypes_table_matches_the_cuda_source():
+    """psort's ctypes table against every extern "C" signature of the
+    .cu: the same functions, the same argument count, and pointer versus
+    64-bit versus 32-bit int at every position (a pointer passed as a
+    32-bit int is cut, and ctypes would not say so)."""
+    import ctypes
+
+    def kind(t):
+        if t is ctypes.c_void_p:
+            return "ptr"
+        if ctypes.sizeof(t) == 8:
+            return "i64"
+        assert ctypes.sizeof(t) == 4
+        return "i32"
+
+    sigs = _extern_c_signatures()
+    assert set(sigs) == set(psort.ARGTYPES)
+    for name, (res, args) in psort.ARGTYPES.items():
+        assert sigs[name] == (kind(res), [kind(a) for a in args]), name

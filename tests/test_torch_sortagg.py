@@ -325,9 +325,9 @@ def test_kernel_load_failure_raises_through_eval(monkeypatch, tmp_path):
     monkeypatch.setattr(cubuild, "_libs", {})
     monkeypatch.setattr(psort, "_lib", None)
 
-    def card_route(words, n_keys=1):
+    def card_route(words, n_keys=1, perm=False):
         psort._radix_lib()
-        return psort.sort_i32_cuda(words, n_keys)
+        return psort.sort_i32_cuda(words, n_keys, perm=perm)
 
     monkeypatch.setattr(psort, "sort_i32_plain", card_route)
     seen = _falls_back(monkeypatch)
@@ -348,7 +348,7 @@ def test_select_hook_raises_card_faults_only(monkeypatch, err, fault):
     eval_str; any other error runs the host path, as in the reference."""
     from rayforce_tpu_torch.engine import psort
 
-    def broken(words, n_keys=1):
+    def broken(words, n_keys=1, perm=False):
         raise err
 
     monkeypatch.setattr(psort, "sort_i32_plain", broken)

@@ -131,9 +131,9 @@ def test_q7_on_g1_key_ranges():
     calls = []
     plain = psort.sort_i32_plain
 
-    def counting(words, n_keys=1):
+    def counting(words, n_keys=1, perm=False):
         calls.append((n_keys, len(words)))
-        return plain(words, n_keys)
+        return plain(words, n_keys, perm=perm)
 
     psort.sort_i32_plain = counting
     try:
