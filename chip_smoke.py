@@ -44,10 +44,29 @@ Phases, each reported on its own line:
              bit. A [sort_shapes] line counts the main path's sort
              launches per (rows, key words, words). Then each query's
              warm median exec_ms over 3 runs;
-5. entry     the flagship step (rayforce_tpu_torch/entry.py) on the card
+5. joins     bench.py's join tables made on the card (tools/jtables.py:
+             the G1 table, a 1e6-row right table, 1e7 trades and 2e7
+             quotes), and the joins and table sorts through
+             Runtime().eval_str: ij and lj (1e7 x 1e6 rows), aj (1e7 x
+             2e7), xasc t [id3 v1] and xdesc t 'v3 (1e7 rows). Each must
+             run its engine (device-sortmerge, device-sort), launch the
+             CUDA sort and never fall back to the host; every column,
+             each lazy one forced, must equal the port's host path
+             exactly (a right-only LIST column as its values and match
+             mask), the match ids of ij, lj and aj must equal the host
+             path's, and the next card run must be bit for bit the same.
+             One [join_ms] line per query: the warm median of 3 wall runs
+             with every lazy column forced and the card synchronised, the
+             sort launches, the host path's seconds, and the peak device
+             memory at aj. Then one [sort_time] line per sort shape of
+             these queries, on the words the query gave the sort: kernel,
+             plain and library (torch.sort(stable=True) of the one-value
+             key) ms, the byte bound and the passes skipped;
+6. entry     the flagship step (rayforce_tpu_torch/entry.py) on the card
              against the same step on the CPU;
-6. report    one JSON line with every kernel's numbers, then the result
-             line {"ok": true, "device": {...}}.
+7. report    one JSON line with every kernel's numbers (the radix sort's
+             launches count the main path's and the joins' runs), then
+             the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the result line. Without a
 CUDA device, or without the rest of the repository beside it, it exits
@@ -474,6 +493,229 @@ def main_path(rows, device):
     return launches, per_query, exec_ms, shapes
 
 
+def _join_parts(q):
+    """(head, key names, left table, right table) of `(head [keys] l r)`."""
+    keys = q[q.index("[") + 1:q.index("]")].split()
+    left, right = q[q.index("]") + 1:-1].split()
+    return q[1:].split()[0], keys, left, right
+
+
+def _host_lanes(rt, q, tables):
+    """The port's host path on the same tables, as (column names, numpy
+    lanes). A left or asof join's right-only column with unmatched rows
+    becomes a LIST of boxed atoms there, which at 1e7 rows costs minutes
+    and gigabytes: for those joins the lanes come from the host path's
+    own match (`left_join_ids`, `asof_ids`) and gathers, the right-only
+    column as (values, match mask) with the values gathered at row 0
+    where unmatched, as the device gathers them."""
+    import numpy as np
+    from rayforce_tpu_torch.core import symbols
+    from rayforce_tpu_torch.core import types as T
+    from rayforce_tpu_torch.core.obj import col_by_name, to_np, vec_sym
+    from rayforce_tpu_torch.engine import device as dev
+    from rayforce_tpu_torch.ops import join as oj
+    from rayforce_tpu_torch.ops.items import ray_except, ray_union
+    dev.set_enabled(False)
+    try:
+        if not q.startswith(("(left-join", "(asof-join")):
+            res = rt.eval_str(q)
+            return list(to_np(res.v[0])), [(to_np(c),) for c in res.v[1]]
+        head, keys, left, right = _join_parts(q)
+        lt, rt_ = tables[left], tables[right]
+        lk = [col_by_name(lt, k) for k in keys]
+        rk = [col_by_name(rt_, k) for k in keys]
+        rids = oj.asof_ids(lk, rk) if head == "asof-join" else \
+            oj.left_join_ids(lk, rk)
+        has = rids != T.NULL_I64
+        safe = np.where(has, rids, 0)
+        key_syms = vec_sym(keys)
+        rest = to_np(ray_except(ray_union(lt.v[0], rt_.v[0]), key_syms))
+        lanes = [(to_np(c),) for c in lk]
+        for sid in rest:
+            nm = symbols.name_of(int(sid))
+            c1, c2 = col_by_name(lt, nm), col_by_name(rt_, nm)
+            if c2 is None:
+                lanes.append((to_np(c1),))
+            elif c1 is None:
+                g = to_np(c2)[safe]
+                lanes.append((g,) if has.all() else (g, has))
+            else:
+                lanes.append((np.where(has, to_np(c2)[safe], to_np(c1)),))
+        return list(to_np(key_syms)) + list(rest), lanes
+    finally:
+        dev.set_enabled(True)
+
+
+def join_path(rows, device):
+    """Drive the joins and table sorts (tools/jtables.py JOIN_QUERIES)
+    through the port's Runtime on bench.py's join tables and hold each
+    against the host path and against a second card run. Returns
+    (launches of the run, launches per query, the sort calls of each
+    query as (words, n_keys, perm))."""
+    import numpy as np
+    import torch
+    from rayforce_tpu_torch import Runtime
+    from rayforce_tpu_torch.core import symbols
+    from rayforce_tpu_torch.core.obj import col_by_name, to_np
+    from rayforce_tpu_torch.engine import join as ej
+    from rayforce_tpu_torch.engine import psort
+    from rayforce_tpu_torch.engine import select as sel
+    from rayforce_tpu_torch.engine import sort as es
+    from rayforce_tpu_torch.ops import join as oj
+    from rayforce_tpu_torch.tools.jtables import JOIN_QUERIES, \
+        force_columns, join_tables
+
+    t0 = time.perf_counter()
+    rt = Runtime()
+    tables = join_tables(rows, device)
+    for name, tbl in tables.items():
+        rt.interp.globals[symbols.intern(name)] = tbl
+    phase("join_tables", seconds=round(time.perf_counter() - t0, 3),
+          rows=json.dumps({k: len(v) for k, v in tables.items()},
+                          separators=(",", ":")))
+
+    def no_fallback(e):
+        raise AssertionError(f"device path fell back to the host: {e!r}")
+    sel.warn_fallback = no_fallback
+
+    def run(q):
+        out = rt.eval_str(q)
+        lanes = force_columns(out)
+        torch.cuda.synchronize()
+        return out, lanes
+
+    per_query, results, calls = {}, {}, {}
+    real = psort.sort_i32_cuda
+
+    def recording(words, n_keys=1, skipped=None, perm=False):
+        calls[current].append((list(words), n_keys, perm))
+        return real(words, n_keys, skipped, perm)
+
+    psort.sort_i32_cuda = recording
+    psort.LAUNCHES["radix_sort"] = 0
+    try:
+        for current, (q, engine) in JOIN_QUERIES.items():
+            calls[current] = []
+            before = psort.LAUNCHES["radix_sort"]
+            ej.last_profile.clear()
+            es.last_profile.clear()
+            if current == "aj":
+                base_mb = torch.cuda.memory_allocated() / 2**20
+                torch.cuda.reset_peak_memory_stats()
+            results[current] = run(q)
+            if current == "aj":
+                peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            got = (ej.last_profile or es.last_profile).get("engine")
+            if got != engine:
+                raise AssertionError(f"{current}: engine {got}, not {engine}")
+            per_query[current] = psort.LAUNCHES["radix_sort"] - before
+            if per_query[current] <= 0:
+                raise AssertionError(f"{current}: the CUDA sort never "
+                                     "launched")
+    finally:
+        psort.sort_i32_cuda = real
+    launches = psort.LAUNCHES["radix_sort"]
+
+    for name, (q, engine) in JOIN_QUERIES.items():
+        out, lanes = results[name]
+        t0 = time.perf_counter()
+        want_names, want = _host_lanes(rt, q, tables)
+        host_s = time.perf_counter() - t0
+        if list(to_np(out.v[0])) != list(want_names):
+            raise AssertionError(f"{name}: column names differ from host")
+        if [len(x) for x in lanes] != [len(x) for x in want]:
+            raise AssertionError(f"{name}: column kinds differ from host")
+        for i, (g, w) in enumerate(zip(lanes, want)):
+            for a, b in zip(g, w):
+                a = a.cpu().numpy()
+                if a.dtype != b.dtype or a.shape != b.shape or \
+                        a.tobytes() != b.tobytes():
+                    raise AssertionError(f"{name}: column {i} differs "
+                                         "from the host path")
+        if engine == "device-sortmerge":
+            # the match ids themselves against the host path's match
+            head, keys, left, right = _join_parts(q)
+            lk = [col_by_name(tables[left], k) for k in keys]
+            rk = [col_by_name(tables[right], k) for k in keys]
+            if head == "asof-join":
+                got = ej.match_ids_device(lk[:-1], rk[:-1], ltime=lk[-1],
+                                          rtime=rk[-1], mode="asof")
+                want_ids = oj.asof_ids(lk, rk)
+            else:
+                got = ej.match_ids_device(lk, rk)
+                want_ids = oj.left_join_ids(lk, rk)
+            if not np.array_equal(got.cpu().numpy(), want_ids):
+                raise AssertionError(f"{name}: match ids differ from host")
+        runs = []
+        for i in range(4):
+            t0 = time.perf_counter()
+            _out, again = run(q)
+            ms = (time.perf_counter() - t0) * 1e3
+            if i == 0:
+                for g, h in zip(lanes, again):
+                    for a, b in zip(g, h):
+                        if not torch.equal(a.view(torch.uint8),
+                                           b.view(torch.uint8)):
+                            raise AssertionError(f"{name}: card runs differ")
+            else:
+                runs.append(ms)
+            del _out, again
+        r = {"query": name, "engine": engine, "rows": len(out),
+             "median_ms": statistics.median(runs), "runs": runs,
+             "launches": per_query[name], "host_seconds": round(host_s, 3),
+             "bit_identical": True}
+        if name == "aj":
+            # device memory in use before aj's run and at its peak
+            r["base_mb"], r["peak_mb"] = round(base_mb, 1), round(peak_mb, 1)
+        phase("join_ms", **r)
+    return launches, per_query, calls
+
+
+def time_join_sorts(psort, torch, calls):
+    """Each join and table sort's own sort, on the very words its query
+    gave it: kernel, plain and library ms (CUDA events, median of 11),
+    the byte bound and the passes skipped. The library call is
+    torch.sort(stable=True) with indices of the key as one i32 or i64
+    value (1 or 2 key words); each kernel output equals the plain
+    version's."""
+    out, seen = [], []
+    for name, cl in calls.items():
+        for words, nk, perm in cl:
+            same = [r for w, r in seen if len(w) == len(words) and
+                    r["key_words"] == nk and r["perm"] == perm and
+                    all(torch.equal(a, b) for a, b in zip(w, words))]
+            if same:             # lj sorts the words ij sorted
+                same[0]["shape"] += "+" + name
+                continue
+            skipped = []
+            got = psort.sort_i32_cuda(words, nk, skipped=skipped, perm=perm)
+            want = psort.sort_i32_plain(words, nk, perm=perm)
+            if perm:
+                got, want = got[0] + [got[1]], want[0] + [want[1]]
+            if max_abs_err(got, want):
+                raise AssertionError(f"radix sort differs at {name}'s sort")
+            lib = None
+            if nk <= 2:
+                key = words[0] if nk == 1 else \
+                    psort.join64(words[0], words[1])
+                lib = cuda_ms(lambda: torch.sort(key, stable=True))
+            rows = int(words[0].shape[0])
+            r = {"shape": name, "rows": rows, "words": len(words),
+                 "key_words": nk, "perm": perm,
+                 "ms": cuda_ms(lambda: psort.sort_i32_cuda(words, nk,
+                                                           perm=perm)),
+                 "plain_ms": cuda_ms(lambda: psort.sort_i32_plain(
+                     words, nk, perm=perm)),
+                 "library_ms": lib,
+                 "bound_ms": (2 * len(words) + int(perm)) * rows * 4 /
+                 HBM_BYTES_PER_S * 1e3,
+                 "skipped_passes": sum(skipped),
+                 "skip_flags": "".join(str(int(x)) for x in skipped)}
+            seen.append((words, r))
+            out.append(r)
+    return out
+
+
 def _columns(tbl, name):
     import numpy as np
     from rayforce_tpu_torch.core.obj import to_np
@@ -586,11 +828,19 @@ def main():
          for (n, k, m), c in sorted(shapes.items())],
         separators=(",", ":")))
 
-    # 5. the flagship step
+    # 5. the joins and table sorts at the bench's sizes
+    join_launches, join_per_query, calls = join_path(ROWS, "cuda")
+    phase("join_path", launches=join_launches,
+          per_query=json.dumps(join_per_query, separators=(",", ":")))
+    for r in time_join_sorts(psort, torch, calls):
+        phase("sort_time", **r)
+    del calls
+
+    # 6. the flagship step
     lanes = check_entry(torch)
     phase("entry", lanes=lanes, card_equals_cpu=True)
 
-    # 6. report
+    # 7. report
     main = next(r for r in times if r["shape"] == "sortagg_2w")
     kernels = [{
         "name": "radix_sort",
@@ -599,7 +849,7 @@ def main():
         "replaces": "rayforce_tpu/engine/psort.py:251 (_block_kernel), "
                     "rayforce_tpu/engine/psort.py:284 "
                     "(_window_pass_kernel)",
-        "launches": main_launches,
+        "launches": main_launches + join_launches,
         "max_abs_err": err,
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],

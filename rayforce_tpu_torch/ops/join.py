@@ -2,8 +2,8 @@
 index_*_join_obj).
 
 Key matching uses joint factorization of the key columns of both tables
-(the host analogue of the reference's row-hash + hash-table probe;
-on device this becomes the sharded hash-join kernel in engine/).
+(the host analogue of the reference's row-hash + hash-table probe; on
+the device, left, inner and asof joins are engine/join.py's sort-merge).
 Match semantics: FIRST matching right row per left row.
 """
 from __future__ import annotations
@@ -154,10 +154,88 @@ def _key_cols(tbl: Obj, keys: Obj) -> list:
     return out
 
 
+_DEV_COL_OK = (T.B8, T.U8, T.I16, T.I32, T.I64, T.DATE, T.TIME,
+               T.TIMESTAMP, T.SYMBOL, T.F64, T.ENUM)
+
+
 def _try_device_join(keys, lt, rt, lk, rk, mode: str):
-    """Device sort-merge join: not ported yet (ROADMAP, queue 1), so
-    every join runs on the host path."""
-    return None
+    """Sort-merge join on the device (engine/join.py); the merged table
+    with lazily device-resident columns, or None for the host path. A
+    device fault propagates."""
+    from ..engine import device as dv
+    if not dv.available() or not dv.should_use(len(lt) + len(rt)):
+        return None
+    try:
+        from ..engine import join as ej
+        lnames, _ = lt.v
+        rnames, _ = rt.v
+        rest = ray_except(ray_union(lnames, rnames), keys)
+        if len(rest) == 0:
+            return None       # the host path raises the reference's error
+        plan_cols = []
+        for sid in to_np(rest):
+            nm = symbols.name_of(int(sid))
+            c1 = col_by_name(lt, nm)
+            c2 = col_by_name(rt, nm)
+            if c2 is None:
+                if mode == "inner" and c1.t not in _DEV_COL_OK:
+                    return None
+                plan_cols.append((sid, "left", c1))
+                continue
+            if c2.t not in _DEV_COL_OK:
+                return None
+            if c1 is not None:
+                if c1.t != c2.t:
+                    return None  # the host path raises the matching error
+                if c2.t == T.ENUM and c1.domain is not c2.domain:
+                    return None
+                plan_cols.append((sid, "overlay", (c1, c2)))
+            else:
+                plan_cols.append((sid, "right", c2))
+        if mode == "asof":
+            rids = ej.match_ids_device(lk[:-1], rk[:-1], ltime=lk[-1],
+                                       rtime=rk[-1], mode="asof")
+        else:
+            rids = ej.match_ids_device(lk, rk)
+        if rids is None:
+            return None
+        out_names = Obj(T.SYMBOL, np.asarray(
+            list(to_np(keys)) + [s for s, _k, _c in plan_cols],
+            dtype=np.int64))
+        if mode == "inner":
+            # matched rows in left order: left columns by lids, right
+            # and overlay columns by rsel
+            lids, rsel, n_match = ej.compact_ids(rids)
+            out_cols = [ej.lazy_take_col(c, lids, n_match) for c in lk]
+            for _sid, kind, c in plan_cols:
+                if kind == "left":
+                    out_cols.append(ej.lazy_take_col(c, lids, n_match))
+                else:
+                    right = c[1] if kind == "overlay" else c
+                    out_cols.append(ej.lazy_take_col(right, rsel, n_match))
+            return table(out_names, out_cols)
+        # unmatched rows of a right-only column degrade it to a LIST of
+        # untyped nulls (join.c:38-66), still lazy on the device
+        right_only_list = any(k == "right" for _s, k, _c in plan_cols) \
+            and not ej.all_matched(rids)
+        n_l = len(lt)
+        out_cols = list(lk)
+        for _sid, kind, c in plan_cols:
+            if kind == "left":
+                out_cols.append(c)
+            elif kind == "overlay":
+                out_cols.append(ej.lazy_gather_col(c[1], rids, c[0], n_l))
+            elif right_only_list:
+                out_cols.append(ej.lazy_right_only_col(c, rids, n_l))
+            else:
+                out_cols.append(ej.lazy_gather_col(c, rids, None, n_l))
+        return table(out_names, out_cols)
+    except Exception as e:
+        if dv.is_fault(e):
+            raise
+        from ..engine.select import warn_fallback
+        warn_fallback(e)
+        return None
 
 
 def ray_left_join(args: list) -> Obj:

@@ -3,7 +3,8 @@
 
 Ordering contract (tests/sort.c): nulls sort first ascending; f64 NaN sorts
 as the smallest; symbols sort in STRING order (not id order). The host path
-uses numpy stable argsort; the device sort engine is not ported yet (ROADMAP).
+uses numpy stable argsort; xasc/xdesc of a large table run on the device
+(engine/sort.py).
 """
 from __future__ import annotations
 
@@ -120,9 +121,34 @@ def _table_order(tbl: Obj, by: Obj, desc: bool) -> np.ndarray:
 
 
 def _try_device_xsort(tbl: Obj, by: Obj, desc: bool):
-    """Device table sort: not ported yet (ROADMAP, queue 1), so xasc/
-    xdesc run on the host path."""
-    return None
+    """Table sort on the device (engine/sort.py); the sorted table with
+    lazily device-resident columns, or None for the host path. A device
+    fault propagates."""
+    from ..engine import device as dv
+    if not dv.available() or not dv.should_use(len(tbl)):
+        return None
+    try:
+        from ..core.obj import col_by_name
+        from ..engine.sort import xsort_device
+        if by.t == -T.SYMBOL:
+            names = [symbols.name_of(int(by.v))]
+        elif by.t == T.SYMBOL:
+            names = [symbols.name_of(int(s)) for s in to_np(by)]
+        else:
+            return None
+        key_cols = []
+        for nm in names:
+            c = col_by_name(tbl, nm)
+            if c is None:
+                return None
+            key_cols.append(c)
+        return xsort_device(tbl, key_cols, desc)
+    except Exception as e:
+        if dv.is_fault(e):
+            raise
+        from ..engine.select import warn_fallback
+        warn_fallback(e)
+        return None
 
 
 def ray_xasc(tbl: Obj, by: Obj) -> Obj:

@@ -1,9 +1,10 @@
-"""Where the device time goes: torch.profiler over the CUDA radix sort
-and over warm grouped selects on a G1 table (the sort-agg queries, the
-dense plan's and the wide engine's), on one CUDA card.
+"""Where the device time goes: torch.profiler over the CUDA radix sort,
+over warm grouped selects on a G1 table (the sort-agg queries, the
+dense plan's and the wide engine's) and over warm joins and table sorts
+on bench.py's join tables (tools/jtables.py), on one CUDA card.
 
     python -m rayforce_tpu_torch.tools.sortprof [--rows N] [--out DIR]
-        [--queries q1,q7,...] [--no-sort] [--no-queries]
+        [--queries q1,q7,ij,aj,...] [--no-sort] [--no-queries]
 
 The sort is profiled at the main path's shapes: one key word alone (the
 compaction sorts' key-only route), one key word with one and with two
@@ -14,7 +15,9 @@ each pass, gathers) and the sums by kernel name.
 
 Prints, per profiled region, the device time by kernel name and the
 region's wall time, device-busy time and idle share, and writes the
-Chrome traces under --out. Numbers are only meaningful on the card.
+Chrome traces under --out; per query also the radix sort's launches in
+one run. A join or table sort's run forces every lazy output column.
+Numbers are only meaningful on the card.
 """
 from __future__ import annotations
 
@@ -118,7 +121,8 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default="")
     ap.add_argument("--queries", default="q2,q3,q5,q6",
-                    help="comma-separated names of tools.g1.QUERIES")
+                    help="comma-separated names of tools.g1.QUERIES and "
+                    "tools.jtables.JOIN_QUERIES")
     ap.add_argument("--no-sort", action="store_true",
                     help="skip the radix sort's own profiles")
     ap.add_argument("--no-queries", action="store_true",
@@ -138,6 +142,7 @@ def main(argv=None):
     from rayforce_tpu_torch.engine import device as dev, psort
     from rayforce_tpu_torch.engine import select as sel
     from .g1 import QUERIES, g1_table
+    from .jtables import JOIN_QUERIES, force_columns, join_tables
     dev.set_device("cuda")
 
     n = args.rows
@@ -155,15 +160,34 @@ def main(argv=None):
         return 0
 
     rt = Runtime()
-    rt.interp.globals[symbols.intern("t")] = g1_table(n, "cuda")
-    for name in args.queries.split(","):
-        q = QUERIES[name][0]
-        rt.eval_str(q)
-        _profile(name, lambda: rt.eval_str(q), args.reps, args.out)
-        p = sel.last_profile
-        ms = p["exec_ms"] if "exec_ms" in p else \
-            p["dispatch_ms"] + p["exec+fetch_ms"]
-        print(f"   exec_ms (last run) {ms:.3f}")
+    names = args.queries.split(",")
+    tables = join_tables(n, "cuda") if any(
+        q in JOIN_QUERIES for q in names) else {"t": g1_table(n, "cuda")}
+    for tname, tbl in tables.items():
+        rt.interp.globals[symbols.intern(tname)] = tbl
+    for name in names:
+        if name in JOIN_QUERIES:
+            q = JOIN_QUERIES[name][0]
+
+            def run(q=q):
+                return force_columns(rt.eval_str(q))
+        else:
+            q = QUERIES[name][0]
+
+            def run(q=q):
+                return rt.eval_str(q)
+        run()
+        torch.cuda.synchronize()
+        before = psort.LAUNCHES["radix_sort"]
+        run()
+        launches = psort.LAUNCHES["radix_sort"] - before
+        _profile(name, run, args.reps, args.out)
+        print(f"   sort launches per run {launches}")
+        if name not in JOIN_QUERIES:
+            p = sel.last_profile
+            ms = p["exec_ms"] if "exec_ms" in p else \
+                p["dispatch_ms"] + p["exec+fetch_ms"]
+            print(f"   exec_ms (last run) {ms:.3f}")
     return 0
 
 
