@@ -62,11 +62,37 @@ Phases, each reported on its own line:
              these queries, on the words the query gave the sort: kernel,
              plain and library (torch.sort(stable=True) of the one-value
              key) ms, the byte bound and the passes skipped;
-6. entry     the flagship step (rayforce_tpu_torch/entry.py) on the card
+6. wjoin     on the same tables, the window joins through
+             Runtime().eval_str (tools/jtables.py WJOIN_QUERIES): wj,
+             bench.py's window-join1 of 1e7 trades against 2e7 quotes
+             (max and min of p over +-1000), and wj0, a window-join over
+             +-1e7 (about 12 quotes a window) with every aggregate over
+             the nullable columns of `quotesn`. Each must run
+             device-wjoin, launch the CUDA sort and never fall back;
+             every forced column must equal the port's host path (count,
+             first, last, min and max exactly; sum, avg and dev within a
+             tolerance sized to the prefix sums, each lane's max_abs_err
+             printed) and the next card run bit for bit. One [join_ms]
+             line per query (wj0 with base_mb and peak_mb) and one
+             [sort_time] line per sort shape of these queries;
+7. parted    the G1 table at 1e7 rows written as 10 date partitions of
+             1e6 rows (storage/parted.py) into a temporary directory,
+             opened with get_parted, and six grouped selects over it
+             (q1, q3, q5, q6, dev v3 by id4, q3 with a where): first
+             streaming partition by partition (ops/query.py
+             STREAM_PARTED = True; every partition must run on the
+             device and launch the sort), then razed into one device
+             table (STREAM_PARTED = None: 720 MB is under the razing
+             guard). Each must equal the port's host path over the
+             parted table (keys and integer lanes exactly, f64 within
+             rtol 1e-9). One [parted_ms] line per query and mode: the
+             warm median of 3 wall runs;
+8. entry     the flagship step (rayforce_tpu_torch/entry.py) on the card
              against the same step on the CPU;
-7. report    one JSON line with every kernel's numbers (the radix sort's
-             launches count the main path's and the joins' runs), then
-             the result line {"ok": true, "device": {...}}.
+9. report    one JSON line with every kernel's numbers (the radix sort's
+             launches count the main path's, the joins', the window
+             joins' and the parted selects' runs), then the result line
+             {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the result line. Without a
 CUDA device, or without the rest of the repository beside it, it exits
@@ -551,7 +577,7 @@ def join_path(rows, device):
     through the port's Runtime on bench.py's join tables and hold each
     against the host path and against a second card run. Returns
     (launches of the run, launches per query, the sort calls of each
-    query as (words, n_keys, perm))."""
+    query as (words, n_keys, perm), the Runtime, the tables)."""
     import numpy as np
     import torch
     from rayforce_tpu_torch import Runtime
@@ -668,7 +694,256 @@ def join_path(rows, device):
             # device memory in use before aj's run and at its peak
             r["base_mb"], r["peak_mb"] = round(base_mb, 1), round(peak_mb, 1)
         phase("join_ms", **r)
+    return launches, per_query, calls, rt, tables
+
+
+# the f64 lanes of the window joins, held to the host path within a
+# tolerance: output column -> (aggregate, right table, right column)
+WJ_F64_LANES = {"wj0": {"s": ("sum", "quotesn", "pn"),
+                        "a": ("avg", "quotesn", "pn"),
+                        "d": ("dev", "quotesn", "pn")}}
+
+
+def _wj_tolerance(kind, x):
+    """The window-join f64 lanes' tolerance against the host path. Both
+    paths take boundary differences of prefix sums over the whole sorted
+    right column, adding in different orders, so an error is bounded by
+    the column's prefix magnitude: 2^-40 of sum |x| for sum and avg
+    (an average divides by a count >= 1), and for dev 2^-40 of the
+    shifted second moment sum (x - mean)^2, held on dev^2."""
+    import numpy as np
+    x = x[~np.isnan(x)]
+    if kind == "dev":
+        return float(((x - x.mean()) ** 2).sum()) * 2.0 ** -40
+    return float(np.abs(x).sum()) * 2.0 ** -40
+
+
+def wjoin_path(rt, tables):
+    """Drive the window joins (tools/jtables.py WJOIN_QUERIES) through the
+    port's Runtime on bench.py's join tables and hold each against the
+    host path and a second card run. Returns (launches of the run,
+    launches per query, the sort calls of each query)."""
+    import numpy as np
+    import torch
+    from rayforce_tpu_torch.core import symbols
+    from rayforce_tpu_torch.core.obj import col_by_name, to_np
+    from rayforce_tpu_torch.engine import device as dev
+    from rayforce_tpu_torch.engine import psort
+    from rayforce_tpu_torch.engine import wjoin as ew
+    from rayforce_tpu_torch.tools.jtables import WJOIN_QUERIES, \
+        force_columns
+
+    def run(q):
+        out = rt.eval_str(q)
+        lanes = force_columns(out)
+        torch.cuda.synchronize()
+        return out, lanes
+
+    per_query, results, calls = {}, {}, {}
+    real = psort.sort_i32_cuda
+
+    def recording(words, n_keys=1, skipped=None, perm=False):
+        calls[current].append((list(words), n_keys, perm))
+        return real(words, n_keys, skipped, perm)
+
+    psort.sort_i32_cuda = recording
+    psort.LAUNCHES["radix_sort"] = 0
+    try:
+        for current, q in WJOIN_QUERIES.items():
+            calls[current] = []
+            before = psort.LAUNCHES["radix_sort"]
+            ew.last_profile.clear()
+            if current == "wj0":
+                base_mb = torch.cuda.memory_allocated() / 2**20
+                torch.cuda.reset_peak_memory_stats()
+            results[current] = run(q)
+            if current == "wj0":
+                peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            got = ew.last_profile.get("engine")
+            if got != "device-wjoin":
+                raise AssertionError(f"{current}: engine {got}, not "
+                                     "device-wjoin")
+            per_query[current] = psort.LAUNCHES["radix_sort"] - before
+            if per_query[current] <= 0:
+                raise AssertionError(f"{current}: the CUDA sort never "
+                                     "launched")
+    finally:
+        psort.sort_i32_cuda = real
+    launches = psort.LAUNCHES["radix_sort"]
+
+    for name, q in WJOIN_QUERIES.items():
+        out, lanes = results[name]
+        dev_names = [symbols.name_of(int(x)) for x in to_np(out.v[0])]
+        t0 = time.perf_counter()
+        dev.set_enabled(False)
+        try:
+            want = rt.eval_str(q)
+            want_cols = [to_np(c) for c in want.v[1]]
+        finally:
+            dev.set_enabled(True)
+        host_s = time.perf_counter() - t0
+        if [symbols.name_of(int(x)) for x in to_np(want.v[0])] != \
+                dev_names:
+            raise AssertionError(f"{name}: column names differ from host")
+        errs = {}
+        f64 = WJ_F64_LANES.get(name, {})
+        for cname, (g,), w in zip(dev_names, lanes, want_cols):
+            a = g.cpu().numpy()
+            if cname in f64:
+                kind, tname, rcol = f64[cname]
+                tol = _wj_tolerance(kind, to_np(col_by_name(tables[tname],
+                                                            rcol)))
+                if a.dtype != w.dtype or a.shape != w.shape or \
+                        not np.array_equal(np.isnan(a), np.isnan(w)):
+                    raise AssertionError(f"{name}: lane {cname} differs "
+                                         "from the host path in its nulls")
+                ok = ~np.isnan(a)
+                if kind == "dev":
+                    err = float(np.abs(a[ok] ** 2 - w[ok] ** 2).max())
+                else:
+                    err = float(np.abs(a[ok] - w[ok]).max())
+                errs[cname] = err
+                if err > tol:
+                    raise AssertionError(f"{name}: lane {cname} differs "
+                                         f"from the host path by {err} > "
+                                         f"{tol}")
+            elif a.dtype != w.dtype or a.shape != w.shape or \
+                    a.tobytes() != w.tobytes():
+                raise AssertionError(f"{name}: lane {cname} differs from "
+                                     "the host path")
+        del want, want_cols
+        runs = []
+        for i in range(4):
+            t0 = time.perf_counter()
+            _out, again = run(q)
+            ms = (time.perf_counter() - t0) * 1e3
+            if i == 0:
+                for (a,), (b,) in zip(lanes, again):
+                    if not torch.equal(a.view(torch.uint8),
+                                       b.view(torch.uint8)):
+                        raise AssertionError(f"{name}: card runs differ")
+            else:
+                runs.append(ms)
+            del _out, again
+        valid = int((~torch.isnan(lanes[2][0])).sum()) if name == "wj" \
+            else int((lanes[2][0] > 0).sum())
+        r = {"query": name, "engine": "device-wjoin", "rows": len(out),
+             "median_ms": statistics.median(runs), "runs": runs,
+             "launches": per_query[name], "host_seconds": round(host_s, 3),
+             "bit_identical": True, "nonempty_windows": valid,
+             "max_abs_err": json.dumps(errs, separators=(",", ":"))}
+        if name == "wj0":
+            r["base_mb"], r["peak_mb"] = round(base_mb, 1), round(peak_mb, 1)
+        phase("join_ms", **r)
     return launches, per_query, calls
+
+
+PARTS = 10
+
+
+def parted_path(rows, device):
+    """Write the G1 table as PARTS date partitions into a temporary
+    directory, open it with get_parted, and run tools/g1.py
+    PARTED_QUERIES over it, streaming partition by partition and razed,
+    each held against the port's host path over the parted table.
+    Returns (launches of the checked run of each query and mode, the
+    launches per query and mode); the timed reruns are not counted."""
+    import shutil
+    import tempfile
+    import torch
+    from rayforce_tpu_torch import Runtime
+    from rayforce_tpu_torch.core import symbols
+    from rayforce_tpu_torch.core.obj import Obj, table, to_np
+    from rayforce_tpu_torch.engine import device as dev
+    from rayforce_tpu_torch.engine import psort
+    from rayforce_tpu_torch.engine import select as sel
+    from rayforce_tpu_torch.ops import query as Q
+    from rayforce_tpu_torch.storage import parted as P
+    from rayforce_tpu_torch.tools.g1 import PARTED_QUERIES, g1_table
+
+    rt = Runtime()
+    t0 = time.perf_counter()
+    g1 = g1_table(rows, device)
+    names, cols = g1.v
+    host = [(c.t, to_np(c)) for c in cols]
+    del g1, cols
+    tmp = tempfile.mkdtemp(prefix="rf_parted_")
+    saved = Q.STREAM_PARTED
+    try:
+        step = rows // PARTS
+        for i in range(PARTS):
+            part = table(names, [Obj(t, a[i * step:(i + 1) * step])
+                                 for t, a in host])
+            P.set_parted(tmp, f"2024.01.{i + 1:02d}", "t", part,
+                         interp=rt.interp)
+        del host, part
+        pt = P.get_parted(tmp, "t", interp=rt.interp)
+        rt.interp.globals[symbols.intern("pt")] = pt
+        phase("parted_table", rows=len(pt), partitions=PARTS,
+              seconds=round(time.perf_counter() - t0, 3))
+
+        want, host_s = {}, {}
+        dev.set_enabled(False)
+        try:
+            for name, q in PARTED_QUERIES.items():
+                t0 = time.perf_counter()
+                want[name] = rt.eval_str(q)
+                _columns(want[name], name)
+                host_s[name] = round(time.perf_counter() - t0, 3)
+        finally:
+            dev.set_enabled(True)
+
+        def run(q):
+            out = rt.eval_str(q)
+            _columns(out, q)
+            torch.cuda.synchronize()
+            return out
+
+        per_query = {}
+        psort.LAUNCHES["radix_sort"] = 0
+        for mode, flag in (("stream", True), ("razed", None)):
+            Q.STREAM_PARTED = flag
+            for name, q in PARTED_QUERIES.items():
+                # each call of the device select (one per partition when
+                # streaming, one for the razed table): whether it
+                # answered, and its sort launches
+                seen = []
+                real = sel.try_select_device
+
+                def watched(*a, **k):
+                    before = psort.LAUNCHES["radix_sort"]
+                    r = real(*a, **k)
+                    seen.append((r is not None and not isinstance(r, str),
+                                 psort.LAUNCHES["radix_sort"] - before))
+                    return r
+                before = psort.LAUNCHES["radix_sort"]
+                sel.try_select_device = watched
+                try:
+                    got = run(q)
+                finally:
+                    sel.try_select_device = real
+                per_query[f"{name}_{mode}"] = \
+                    psort.LAUNCHES["radix_sort"] - before
+                calls = PARTS if mode == "stream" else 1
+                if len(seen) != calls or not all(
+                        ok and n > 0 for ok, n in seen):
+                    raise AssertionError(f"{name} ({mode}): device calls "
+                                         f"{seen}, not {calls} that each "
+                                         "launch the sort")
+                groups = same_table(got, want[name], f"{name} ({mode})")
+                runs = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    run(q)
+                    runs.append((time.perf_counter() - t0) * 1e3)
+                phase("parted_ms", query=name, mode=mode, groups=groups,
+                      median_ms=statistics.median(runs), runs=runs,
+                      launches=per_query[f"{name}_{mode}"],
+                      device_calls=len(seen), host_seconds=host_s[name])
+        return sum(per_query.values()), per_query
+    finally:
+        Q.STREAM_PARTED = saved
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def time_join_sorts(psort, torch, calls):
@@ -829,18 +1104,33 @@ def main():
         separators=(",", ":")))
 
     # 5. the joins and table sorts at the bench's sizes
-    join_launches, join_per_query, calls = join_path(ROWS, "cuda")
+    join_launches, join_per_query, calls, rt, tables = join_path(ROWS,
+                                                                 "cuda")
     phase("join_path", launches=join_launches,
           per_query=json.dumps(join_per_query, separators=(",", ":")))
     for r in time_join_sorts(psort, torch, calls):
         phase("sort_time", **r)
     del calls
 
-    # 6. the flagship step
+    # 6. the window joins on the same tables
+    wj_launches, wj_per_query, calls = wjoin_path(rt, tables)
+    phase("wjoin_path", launches=wj_launches,
+          per_query=json.dumps(wj_per_query, separators=(",", ":")))
+    for r in time_join_sorts(psort, torch, calls):
+        phase("sort_time", **r)
+    del calls, rt, tables
+    torch.cuda.empty_cache()
+
+    # 7. parted selects, streamed and razed
+    parted_launches, parted_per_query = parted_path(ROWS, "cuda")
+    phase("parted_path", launches=parted_launches,
+          per_query=json.dumps(parted_per_query, separators=(",", ":")))
+
+    # 8. the flagship step
     lanes = check_entry(torch)
     phase("entry", lanes=lanes, card_equals_cpu=True)
 
-    # 7. report
+    # 9. report
     main = next(r for r in times if r["shape"] == "sortagg_2w")
     kernels = [{
         "name": "radix_sort",
@@ -849,7 +1139,8 @@ def main():
         "replaces": "rayforce_tpu/engine/psort.py:251 (_block_kernel), "
                     "rayforce_tpu/engine/psort.py:284 "
                     "(_window_pass_kernel)",
-        "launches": main_launches + join_launches,
+        "launches": main_launches + join_launches + wj_launches +
+        parted_launches,
         "max_abs_err": err,
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],

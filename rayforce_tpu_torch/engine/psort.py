@@ -25,6 +25,7 @@ There is nothing in between.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -32,8 +33,10 @@ from .device import DeviceError
 
 INT32_MIN = -(1 << 31)
 
-# launches of each hand-written kernel, read by chip_smoke.py and tests
+# launches of each hand-written kernel, read by chip_smoke.py and tests;
+# parted selects launch from worker threads, so the count takes a lock
 LAUNCHES = {"radix_sort": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -129,7 +132,8 @@ def sort_i32_cuda(words, n_keys=1, skipped=None, perm=False, route=-1):
         raise
     except Exception as e:
         raise DeviceError(f"radix sort: {type(e).__name__}: {e}") from e
-    LAUNCHES["radix_sort"] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES["radix_sort"] += 1
     if skipped is not None:
         off = lib.rf_radix_sort_skip_offset()
         skipped += state[off:off + 4 * n_keys].tolist()

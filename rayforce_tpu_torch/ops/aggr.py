@@ -198,8 +198,13 @@ def _reduceat_ranges(ufunc, a: np.ndarray, li, ri, empty_val):
     ok = (li <= ri) & (li >= 0)
     if not ok.any():
         return out, ok
-    li_ok = li[ok]
-    ri_ok = ri[ok]
+    # windows in ascending li: the odd (between-window) reduceat slots
+    # then either step back (one element) or span a gap, and the gaps do
+    # not overlap, so the whole pass is linear; in row order an odd
+    # slot can span most of the array for every window
+    order = np.argsort(li[ok], kind="stable")
+    li_ok = li[ok][order]
+    ri_ok = ri[ok][order]
     bounds = np.empty(2 * len(li_ok), dtype=np.int64)
     bounds[0::2] = li_ok
     bounds[1::2] = ri_ok + 1
@@ -215,7 +220,9 @@ def _reduceat_ranges(ufunc, a: np.ndarray, li, ri, empty_val):
     tail = (ri_ok + 1 >= len(a)) & (li_ok < len(a) - 1)
     if tail.any():
         red[tail] = ufunc(red[tail], a[-1])
-    out[ok] = red
+    red_rows = np.empty_like(red)
+    red_rows[order] = red
+    out[ok] = red_rows
     return out, ok
 
 

@@ -335,6 +335,21 @@ def ray_asof_join(args: list) -> Obj:
     return _merge_columns(lt, rt, keys, lk, rids)
 
 
+def _search_ascending(hay: np.ndarray, needles: np.ndarray, sides):
+    """np.searchsorted(hay, needles, side) for each side, the needles
+    searched in ascending order: numpy narrows each search by the one
+    before when the needles ascend, which at 1e7 random needles is
+    several times faster than searching them in row order."""
+    order = np.argsort(needles, kind="stable")
+    sn = needles[order]
+    out = []
+    for side in sides:
+        p = np.empty(len(needles), dtype=np.int64)
+        p[order] = np.searchsorted(hay, sn, side=side)
+        out.append(p)
+    return out
+
+
 def window_ranges(lkeys: list, rkeys_sorted: list, lo: np.ndarray,
                   hi: np.ndarray, tp: int):
     """Per-left-row [li, ri] into the xasc-sorted right table
@@ -382,13 +397,11 @@ def window_ranges(lkeys: list, rkeys_sorted: list, lo: np.ndarray,
         r_comb = rc * span + inv_t[:nr]
         lo_comb = lc * span + inv_t[nr:nr + nl]
         hi_comb = lc * span + inv_t[nr + nl:]
-        p_lo_r = np.searchsorted(r_comb, lo_comb, side="right") - 1
-        p_lo_l = np.searchsorted(r_comb, lo_comb, side="left")
-        p_hi_r = np.searchsorted(r_comb, hi_comb, side="right") - 1
     else:
-        p_lo_r = np.searchsorted(rt, lo, side="right") - 1
-        p_lo_l = np.searchsorted(rt, lo, side="left")
-        p_hi_r = np.searchsorted(rt, hi, side="right") - 1
+        r_comb, lo_comb, hi_comb = rt, lo, hi
+    p_lo_r, p_lo_l = _search_ascending(r_comb, lo_comb, ("right", "left"))
+    p_lo_r = p_lo_r - 1
+    p_hi_r = _search_ascending(r_comb, hi_comb, ("right",))[0] - 1
     # defaults to group start when out of range (reference bin default 0)
     li_r = np.where(p_lo_r < g_fi, g_fi, np.minimum(p_lo_r, g_ti))
     li_l = np.where((p_lo_l > g_ti) | (p_lo_l < g_fi), g_fi,
@@ -405,10 +418,64 @@ def window_ranges(lkeys: list, rkeys_sorted: list, lo: np.ndarray,
                        np.where(valid, ri, -1), valid)
 
 
+def _wbound(o: Obj):
+    """A window bound column: its device tensor where it already lives on
+    the device (as the device arithmetic leaves `(map-left + [-w w] ts)`),
+    else int64 numpy. Re-uploading 10M+ host rows would cost more than
+    the join."""
+    p = o.pending()
+    if p is not None:
+        return p.arr
+    if isinstance(o.meta, dict) and "dev" in o.meta:
+        return o.meta["dev"]
+    return to_np(o).astype(np.int64)
+
+
 def _try_device_window_join(interp, keys, windows, lt, rt, aggd, tp):
-    """Device window join: not ported yet (ROADMAP, queue 1), so every
-    window join runs on the host path."""
-    return None
+    """Window join on the device (engine/wjoin.py): event-sort boundaries
+    and prefix-sum / sparse-table range aggregates. The table of the left
+    columns and the aggregates, or None for the host path. The aggregates
+    and key columns are checked before the window bounds are computed;
+    a device fault propagates."""
+    from ..engine import device as dv
+    if not dv.available() or not dv.should_use(len(lt) + len(rt)):
+        return None
+    try:
+        from ..engine import wjoin as ew
+        from ..core.interp import Builtin
+        akeys, avals = aggd.v
+        aggs = []
+        for sid, ast in zip(to_np(akeys), avals.v):
+            if ast.t != T.LIST or len(ast.v) != 2:
+                return None
+            head, carg = ast.v
+            nm = head.v.name if head.t in (T.UNARY, T.BINARY, T.VARY) \
+                and isinstance(head.v, Builtin) else None
+            if nm not in ew.AGGS:
+                return None
+            if carg.t != -T.SYMBOL or (carg.attrs & 1):
+                return None
+            col = col_by_name(rt, symbols.name_of(int(carg.v)))
+            if col is None or col.t in (T.LIST, T.C8, T.GUID) or \
+                    col.t in T.UNPARTED_OF:
+                return None
+            aggs.append((int(sid), nm, col, col.t))
+        lk = _key_cols(lt, keys)
+        rk = _key_cols(rt, keys)
+        res = ew.window_join_device(lk, rk, lambda: _wbound(windows.v[0]),
+                                    lambda: _wbound(windows.v[1]), aggs, tp)
+        if res is None:
+            return None
+        return table(Obj(T.SYMBOL, np.asarray(
+            list(to_np(lt.v[0])) + [s for s, _n, _c, _t in aggs],
+            dtype=np.int64)),
+            list(lt.v[1]) + [res[s] for s, _n, _c, _t in aggs])
+    except Exception as e:
+        if dv.is_fault(e):
+            raise
+        from ..engine.select import warn_fallback
+        warn_fallback(e)
+        return None
 
 
 def ray_window_join(interp, args: list, tp: int) -> Obj:

@@ -324,9 +324,9 @@ def _stream_device_select(interp, src, outs, where_ast, by_ast):
         with ThreadPoolExecutor(max_workers=min(4, nparts)) as ex:
             partials = list(ex.map(one, range(nparts)))
     else:
-        # cold pass runs serially: concurrent first-call jit compiles
-        # from worker threads can crash the backend (observed CPU
-        # segfault in backend_compile); after this pass the cached
+        # the cold pass runs serially: it builds each partition's plan
+        # and stats (and, on the card, the radix sort's first build
+        # and load) once, from one thread; after it the cached
         # sub-tables keep every per-partition plan warm
         partials = [one(i) for i in range(nparts)]
         warm.add(qkey)

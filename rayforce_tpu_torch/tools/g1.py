@@ -40,6 +40,21 @@ QUERIES = {
 }
 
 
+# grouped selects over the table written as a date-parted database
+# `pt` (chip_smoke.py's parted phase): avg streams as sum and count
+# partials, dev as sum, sum of squares and count
+PARTED_QUERIES = {
+    "q1": "(select {s: (sum v1) from: pt by: id1})",
+    "q3": "(select {s: (sum v1) a: (avg v3) from: pt by: id3})",
+    "q5": "(select {s1: (sum v1) s2: (sum v2) s3: (sum v3) from: pt "
+          "by: id6})",
+    "q6": "(select {mx: (max v1) mn: (min v2) from: pt by: id3})",
+    "dev": "(select {d: (dev v3) from: pt by: id4})",
+    "where": "(select {s: (sum v1) a: (avg v3) from: pt by: id3 "
+             "where: (> v3 50.0)})",
+}
+
+
 def g1_table(rows, device):
     """db-benchmark G1 (K=100) on `device`, with bench.py's column specs:
     id1, id2, id4, id5 in [0,100); id3, id6 in [0,100000); v1 in [1,6);

@@ -8,7 +8,11 @@ from a seeded torch.Generator with bench.py's column specs:
   uniform in [0, 100);
 - `trades` and `quotes` (bench.py:468-475): rows and 2*rows rows, `sym`
   i64 uniform in [0, 18000), `ts` i64 uniform in [0, 2e9) and sorted,
-  `quotes.p` f64 uniform in [10, 200) rounded to 1e-6.
+  `quotes.p` f64 uniform in [10, 200) rounded to 1e-6;
+- `quotesn`: `quotes`' own `sym` and `ts` tensors with two nullable
+  columns for the window joins: `pn`, `p` with a seeded 1% set to null
+  (NaN), and `qn`, round(p * 100) as i64 with a seeded 1% set to
+  NULL_I64.
 
 At rows = 1e7 these are the bench's own sizes: ij and lj join 1e7 rows
 to 1e6, aj 1e7 trades to 2e7 quotes.
@@ -30,6 +34,19 @@ JOIN_QUERIES = {
     # the reference's multi-chip bench sort shape (bench.py:245)
     "xasc": ("(xasc t [id3 v1])", "device-sort"),
     "xdesc": ("(xdesc t 'v3)", "device-sort"),
+}
+
+# the window joins over trades and quotes (engine device-wjoin): wj is
+# bench.py's own query (bench.py:478-481; windows of about 0.001 quotes,
+# so nearly every result is a typed null), wj0 prevailing windows of
+# about 12 quotes with every aggregate, nulls on both routes
+WJOIN_QUERIES = {
+    "wj": "(window-join1 [sym ts] (map-left + [-1000 1000] (at trades 'ts)) "
+          "trades quotes {mx: (max p) mn: (min p)})",
+    "wj0": "(window-join [sym ts] (map-left + [-10000000 10000000] "
+           "(at trades 'ts)) trades quotesn {c: (count pn) s: (sum pn) "
+           "a: (avg pn) d: (dev pn) f: (first pn) l: (last qn) "
+           "mn: (min qn) mx: (max pn)})",
 }
 
 
@@ -58,7 +75,8 @@ def _table(names, arrays):
 
 
 def join_tables(rows, device):
-    """{name: table} of t, r, trades and quotes at `rows` G1 rows."""
+    """{name: table} of t, r, trades, quotes and quotesn at `rows` G1
+    rows."""
     gen = torch.Generator(device=device)
     gen.manual_seed(11)
     nr = rows // 10
@@ -80,4 +98,11 @@ def join_tables(rows, device):
             names.append("p")
             arrays.append(torch.round(p * 1e6) / 1e6)
         out[name] = _table(names, arrays)
+    sym, ts, p = (out["quotes"].v[1][i].pending().arr for i in range(3))
+    n = int(p.shape[0])
+    pn = torch.where(torch.rand(n, generator=gen, device=device) < 0.01,
+                     float("nan"), p)
+    qn = torch.where(torch.rand(n, generator=gen, device=device) < 0.01,
+                     int(T.NULL_I64), torch.round(p * 100).to(torch.int64))
+    out["quotesn"] = _table(["sym", "ts", "pn", "qn"], [sym, ts, pn, qn])
     return out

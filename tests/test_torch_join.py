@@ -35,6 +35,7 @@ from rayforce_tpu_torch.engine import device as dev
 from rayforce_tpu_torch.engine import join as ej
 from rayforce_tpu_torch.engine import psort
 from rayforce_tpu_torch.engine import sort as es
+from rayforce_tpu_torch.engine import wjoin as ew
 
 torch.set_num_threads(1)
 
@@ -290,11 +291,14 @@ def fresh_symbols():
 @pytest.mark.parametrize("name,case", _GOLDEN, ids=[k for k, _ in _GOLDEN])
 def test_golden_joins_on_the_device(fresh_symbols, name, case):
     """Every join golden with the port's device path on from one row:
-    ij, lj and aj on the sort-merge engine, and the window joins' right
-    table sorted by the device xasc."""
+    ij, lj and aj on the sort-merge engine, and the window joins on
+    engine/wjoin.py's; a window join with a med or a bare column has no
+    device kernel, and its host path sorts the right table by the
+    device xasc."""
     rt = Runtime()
     ej.last_profile.clear()
     es.last_profile.clear()
+    ew.last_profile.clear()
     try:
         result = None
         for s in case["stmts"]:
@@ -303,10 +307,14 @@ def test_golden_joins_on_the_device(fresh_symbols, name, case):
     except RayError as e:
         got = "ERROR:" + err_msg(e)
     assert got == case["expect"]
-    if "window-join" in case["stmts"][-1]:
+    last = case["stmts"][-1]
+    if "window-join" not in last:
+        assert ej.last_profile.get("engine") == "device-sortmerge"
+    elif "(med " in last or "{c: " in last:
+        assert ew.last_profile.get("engine") is None
         assert es.last_profile.get("engine") == "device-sort"
     else:
-        assert ej.last_profile.get("engine") == "device-sortmerge"
+        assert ew.last_profile.get("engine") == "device-wjoin"
 
 
 # -- match ids, route by route ------------------------------------------------
