@@ -87,12 +87,34 @@ Phases, each reported on its own line:
              parted table (keys and integer lanes exactly, f64 within
              rtol 1e-9). One [parted_ms] line per query and mode: the
              warm median of 3 wall runs;
-8. entry     the flagship step (rayforce_tpu_torch/entry.py) on the card
+8. mesh      the G1 table of phase 4 (same seed, 1e7 rows) row-sharded
+             over an 8-shard mesh on this one card (RAYFORCE_MESH=8,
+             engine/device.py `mesh`; parallel/dist.py), and every
+             tools/g1.py QUERIES select plus two medians at id3's
+             cardinality (tools/g1.py MESH_QUERIES: one over the
+             table, one over a copy made on the card from a seed in
+             which one id3 code holds 60% of the rows, so the median's
+             candidate path runs). Each must run the engine the mesh
+             route picks (spmd for the dense plan, dist-group for
+             sort-agg shapes and the medians; the dense median and q7,
+             whose code and row bits pass 62, stay on one device),
+             launch the CUDA sort and never fall back; each result
+             must equal the single-device card result (phase 4's, or
+             for the two medians a card run with the mesh off, itself
+             held against the host path) with keys, order, counts and
+             integer lanes exactly, f64 within rtol 1e-9, and the next
+             mesh run bit for bit. One [mesh_ms] line per query: the
+             warm median of 3 exec_ms, the shards, the engine, the
+             exchanged bytes and kernel calls of the dist.stats model,
+             the sort launches and the peak device memory. The 8
+             shards share one card and exchange through device-local
+             copies: these are not a multi-card mesh's times;
+9. entry     the flagship step (rayforce_tpu_torch/entry.py) on the card
              against the same step on the CPU;
-9. report    one JSON line with every kernel's numbers (the radix sort's
+10. report   one JSON line with every kernel's numbers (the radix sort's
              launches count the main path's, the joins', the window
-             joins' and the parted selects' runs), then the result line
-             {"ok": true, "device": {...}}.
+             joins', the parted selects' and the mesh selects' runs),
+             then the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the result line. Without a
 CUDA device, or without the rest of the repository beside it, it exits
@@ -504,6 +526,7 @@ def main_path(rows, device):
         dev.set_enabled(True)
 
     exec_ms = {}
+    host_cols = {name: _columns(r, name) for name, r in results.items()}
     for name, (q, engine) in QUERIES.items():
         runs = []
         for i in range(3):
@@ -516,7 +539,135 @@ def main_path(rows, device):
         exec_ms[name] = statistics.median(runs)
         phase("exec_ms", query=name, engine=engine, median_ms=exec_ms[name],
               runs=runs, bit_identical=True)
-    return launches, per_query, exec_ms, shapes
+    return launches, per_query, exec_ms, shapes, host_cols
+
+
+def _exec_ms(prof):
+    return prof["exec_ms"] if "exec_ms" in prof else \
+        prof["dispatch_ms"] + prof["exec+fetch_ms"]
+
+
+MESH_SHARDS = 8
+# the engine the mesh route picks for each query
+MESH_ENGINES = {"q1": "spmd", "q4": "spmd", "med": "dense",
+                "no_by": "spmd", "small_where": "spmd", "q2": "dist-group",
+                "q3": "dist-group", "q5": "dist-group", "q6": "dist-group",
+                "first_last": "dist-group", "where": "dist-group",
+                "q7": "wide", "med_id3": "dist-group",
+                "med_id3_skew": "dist-group"}
+
+
+def _mesh_engine(prof):
+    if "dispatch_ms" in prof:
+        return "spmd" if prof.get("spmd") else "dense"
+    return prof.get("engine", "host")
+
+
+def mesh_path(rows, device, single):
+    """Run every G1 query and the two id3 medians over an 8-shard mesh on
+    the card (every shard on the engine's card), each held against its
+    single-device card result (`single`: phase 4's host copies, held
+    against the host path there; the two medians' are taken and held
+    against the host path here) and a second mesh run. Returns (launches
+    of the checked runs, launches per query)."""
+    import torch
+    from rayforce_tpu_torch import Runtime
+    from rayforce_tpu_torch.core import symbols
+    from rayforce_tpu_torch.engine import device as dev
+    from rayforce_tpu_torch.engine import psort
+    from rayforce_tpu_torch.engine import select as sel
+    from rayforce_tpu_torch.parallel import dist
+    from rayforce_tpu_torch.tools.g1 import MESH_QUERIES, QUERIES, \
+        g1_table, skewed_id3
+
+    def no_fallback(e):
+        raise AssertionError(f"device path fell back to the host: {e!r}")
+    sel.warn_fallback = no_fallback
+
+    t0 = time.perf_counter()
+    rt = Runtime()
+    t = g1_table(rows, device)
+    t_skew, heavy = skewed_id3(t, device)
+    rt.interp.globals[symbols.intern("t")] = t
+    rt.interp.globals[symbols.intern("t_skew")] = t_skew
+    queries = {name: q for name, (q, _e) in QUERIES.items()}
+    queries.update(MESH_QUERIES)
+    phase("mesh_table", rows=rows, heavy_rows=heavy,
+          seconds=round(time.perf_counter() - t0, 3))
+
+    # the two medians' single-device card answers, held against the host
+    want = dict(single)
+    for name, q in MESH_QUERIES.items():
+        sel.last_profile.clear()
+        r = rt.eval_str(q)
+        if _mesh_engine(sel.last_profile) != "sortagg":
+            raise AssertionError(f"{name}: one device ran "
+                                 f"{_mesh_engine(sel.last_profile)}")
+        dev.set_enabled(False)
+        try:
+            t0 = time.perf_counter()
+            h = rt.eval_str(q)
+            host_s = round(time.perf_counter() - t0, 3)
+        finally:
+            dev.set_enabled(True)
+        groups = same_table(r, h, name)
+        want[name] = _columns(r, name)
+        phase("match_host", query=name, engine="sortagg", groups=groups,
+              host_seconds=host_s)
+
+    os.environ["RAYFORCE_MESH"] = str(MESH_SHARDS)
+    dev._mesh_state.update({"mesh": None, "checked": False})
+    try:
+        m = dev.mesh()
+        if m is None or m.n != MESH_SHARDS:
+            raise AssertionError(f"no {MESH_SHARDS}-shard mesh: {m}")
+        results, per_query, stats, peak = {}, {}, {}, {}
+        psort.LAUNCHES["radix_sort"] = 0
+        for name, q in queries.items():
+            before = psort.LAUNCHES["radix_sort"]
+            dist.reset_stats()
+            sel.last_profile.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            results[name] = rt.eval_str(q)
+            _columns(results[name], name)
+            torch.cuda.synchronize()
+            peak[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
+            got = _mesh_engine(sel.last_profile)
+            if got != MESH_ENGINES[name]:
+                raise AssertionError(f"{name}: mesh engine {got}, not "
+                                     f"{MESH_ENGINES[name]}")
+            per_query[name] = psort.LAUNCHES["radix_sort"] - before
+            if per_query[name] <= 0:
+                raise AssertionError(f"{name}: the CUDA sort never launched")
+            stats[name] = dict(dist.stats)
+            if got in ("spmd", "dist-group") and \
+                    stats[name]["kernel_calls"] <= 0:
+                raise AssertionError(f"{name}: no mesh kernel ran")
+        torch.cuda.synchronize()
+        launches = psort.LAUNCHES["radix_sort"]
+
+        for name, q in queries.items():
+            groups = same_table(results[name], want[name], name)
+            runs = []
+            for i in range(3):
+                r = rt.eval_str(q)
+                if i == 0:
+                    same_bits(results[name], r, name)
+                runs.append(_exec_ms(sel.last_profile))
+            phase("mesh_ms", query=name, engine=MESH_ENGINES[name],
+                  shards=MESH_SHARDS, groups=groups,
+                  median_ms=statistics.median(runs), runs=runs,
+                  exchanged_bytes=stats[name]["exchanged_bytes"],
+                  kernel_calls=stats[name]["kernel_calls"],
+                  launches=per_query[name], peak_mb=round(peak[name], 1),
+                  equals_single_device=True, bit_identical=True,
+                  note="8_shards_share_one_card_device_local_exchanges")
+        return launches, per_query
+    finally:
+        os.environ.pop("RAYFORCE_MESH", None)
+        dev._mesh_state.update({"mesh": None, "checked": False})
 
 
 def _join_parts(q):
@@ -999,12 +1150,13 @@ def _columns(tbl, name):
 
 
 def same_table(got, want, name):
-    """Port device result == port host result: names, keys, group order,
-    integer lanes exactly; f64 lanes within rtol 1e-9."""
+    """Port device result == port host result (or another run's columns,
+    as `_columns` gives them): names, keys, group order, integer lanes
+    exactly; f64 lanes within rtol 1e-9."""
     import numpy as np
     from rayforce_tpu_torch.core import types as T
     gn, gc = _columns(got, name)
-    wn, wc = _columns(want, name)
+    wn, wc = want if isinstance(want, tuple) else _columns(want, name)
     if not np.array_equal(gn, wn):
         raise AssertionError(f"{name}: column names differ")
     for i, ((gt, a), (wt, b)) in enumerate(zip(gc, wc)):
@@ -1075,6 +1227,9 @@ def main():
           count=torch.cuda.device_count())
     print(card, flush=True)
     dev.set_device("cuda")
+    result = json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
 
     # 2. build
     t0 = time.perf_counter()
@@ -1095,7 +1250,7 @@ def main():
         phase("sort_time", **r)
 
     # 4. the main path at full size
-    main_launches, per_query, _exec_ms, shapes = main_path(ROWS, "cuda")
+    main_launches, per_query, _ms, shapes, single = main_path(ROWS, "cuda")
     phase("main_path", launches=main_launches,
           per_query=json.dumps(per_query, separators=(",", ":")))
     phase("sort_shapes", calls=json.dumps(
@@ -1126,11 +1281,19 @@ def main():
     phase("parted_path", launches=parted_launches,
           per_query=json.dumps(parted_per_query, separators=(",", ":")))
 
-    # 8. the flagship step
+    # 8. the grouped selects over an 8-shard mesh on the card
+    torch.cuda.empty_cache()
+    mesh_launches, mesh_per_query = mesh_path(ROWS, "cuda", single)
+    phase("mesh_path", launches=mesh_launches, shards=MESH_SHARDS,
+          per_query=json.dumps(mesh_per_query, separators=(",", ":")))
+    del single
+    torch.cuda.empty_cache()
+
+    # 9. the flagship step
     lanes = check_entry(torch)
     phase("entry", lanes=lanes, card_equals_cpu=True)
 
-    # 9. report
+    # 10. report
     main = next(r for r in times if r["shape"] == "sortagg_2w")
     kernels = [{
         "name": "radix_sort",
@@ -1140,7 +1303,7 @@ def main():
                     "rayforce_tpu/engine/psort.py:284 "
                     "(_window_pass_kernel)",
         "launches": main_launches + join_launches + wj_launches +
-        parted_launches,
+        parted_launches + mesh_launches,
         "max_abs_err": err,
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
@@ -1150,9 +1313,7 @@ def main():
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print(result, flush=True)
     return 0
 
 

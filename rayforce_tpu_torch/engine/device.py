@@ -10,6 +10,8 @@ and which device the engine runs on.
 - Columns are uploaded once and cached on their Obj.
 - Column stats (min, max, has_null, qscale) are computed for a whole
   table at once and fetched in one transfer.
+- The mesh (`mesh`, `dev_col_sharded`): with RAYFORCE_MESH=N one
+  process drives N row shards of each table (parallel/dist.py).
 - Config: the row threshold for the device path and the dense
   code-space cap (the analogue of the reference's perfect-hash range
   guard, core/index.c:2308-2424).
@@ -95,9 +97,43 @@ def should_use(n_rows: int) -> bool:
     return available() and n_rows >= _cfg["threshold"]
 
 
+_mesh_state = {"mesh": None, "checked": False}
+
+
 def mesh():
-    """The multi-device mesh: not ported yet (ROADMAP), so always None."""
-    return None
+    """The device mesh when mesh mode is on (RAYFORCE_MESH=N, or `auto`
+    for one shard per visible card), else None. One process drives its
+    N shards, every shard on the engine's device: 8 shards share one
+    card, or CPU torch. Grouped selects then run as per-shard pipelines
+    with their combines (parallel/dist.py)."""
+    if _mesh_state["mesh"] is not None and \
+            _mesh_state.get("device") != device():
+        _mesh_state["checked"] = False     # the engine moved devices
+    if not _mesh_state["checked"]:
+        spec = os.environ.get("RAYFORCE_MESH")
+        if spec and os.environ.get("RAYFORCE_COORDINATOR"):
+            raise DeviceError(
+                "RAYFORCE_COORDINATOR asks for a multi-process mesh, which "
+                "is not ported yet; unset it to run the one-process mesh")
+        d = m = None
+        if spec:
+            d = device()
+            count = torch.cuda.device_count() if d.type == "cuda" else 1
+            try:
+                n = count if spec == "auto" else int(spec)
+            except ValueError:
+                n = 0
+            if n > 1:
+                from ..parallel.dist import make_mesh
+                m = make_mesh(n, device=d)
+        _mesh_state.update({"mesh": m, "checked": True, "device": d})
+    return _mesh_state["mesh"]
+
+
+def mesh_key():
+    """What a cached plan built under the current mesh depends on."""
+    m = mesh()
+    return None if m is None else m.key
 
 
 # -- column device cache ----------------------------------------------------
@@ -120,6 +156,22 @@ def dev_col(col: Obj) -> torch.Tensor:
         col.meta = {}
     col.meta["dev"] = arr
     return arr
+
+
+def dev_col_sharded(col: Obj, m) -> list:
+    """Row-sharded device copy of a column for mesh `m`: one padded row
+    slice per shard (the pipelines mask pad rows by global row id),
+    cached on the Obj for that mesh only."""
+    if isinstance(col.meta, dict):
+        hit = col.meta.get("dev_sh")
+        if hit is not None and hit[0] == m.key:
+            return hit[1]
+    from ..parallel.dist import shard_rows
+    shards, _pad = shard_rows(m, dev_col(col))
+    if not isinstance(col.meta, dict):
+        col.meta = {}
+    col.meta["dev_sh"] = (m.key, shards)
+    return shards
 
 
 # decimal fixed-point scales probed by the column-stats pass: an f64

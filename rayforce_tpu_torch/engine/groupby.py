@@ -194,9 +194,10 @@ def bcast_scan(codes, n: int, n_rows: int, sums=(), mins=(), maxs=(),
         perm = perm.long()
         ends = torch.clamp(torch.cumsum(cnt, 0)[:n] - 1, min=0)
         empty = cnt[:n] == 0
-        for i in fsums:
-            tot = seg_doubling_sum(sc, sums[i][:n_rows][perm])[ends]
-            out[f"sum{i}"] = torch.where(empty, 0.0, tot)
+        tot = seg_doubling_sum(sc, torch.stack(
+            [sums[i][:n_rows][perm] for i in fsums], 1))[ends]
+        for j, i in enumerate(fsums):
+            out[f"sum{i}"] = torch.where(empty, 0.0, tot[:, j])
     for i, m in enumerate(mins):
         out[f"min{i}"] = _scatter_ext(cells, W, m[:n_rows], "amin")[:n]
     for i, m in enumerate(maxs):
@@ -223,18 +224,22 @@ def _seg_scan(seg_ids, vals, op):
     ascending). Two-level log doubling: log2(B) shift+op steps inside
     1024-wide blocks, then a block-summary scan and one combine pass —
     the same blocking as the TPU package's scan, so sums add in the
-    same order."""
+    same order. vals is (n,) or (n, L): L lanes scanned at once, each
+    exactly as on its own."""
     ident = _identity_for(vals, op)
     n = vals.shape[0]
+    lanes = tuple(vals.shape[1:])
+    ex = (slice(None), slice(None)) + (None,) * len(lanes)
     R = -(-n // _SEG_B)
     pad = R * _SEG_B - n
     s2 = torch.cat([seg_ids, seg_ids.new_full((pad,), -2)]) \
         .reshape(R, _SEG_B)
-    m = torch.cat([vals, vals.new_full((pad,), ident)]).reshape(R, _SEG_B)
+    m = torch.cat([vals, vals.new_full((pad,) + lanes, ident)]) \
+        .reshape((R, _SEG_B) + lanes)
 
     d = 1
     while d < _SEG_B:
-        same = s2[:, d:] == s2[:, :-d]
+        same = (s2[:, d:] == s2[:, :-d])[ex]
         shifted = torch.where(same, m[:, :-d], ident)
         m = torch.cat([m[:, :d], _apply(op, m[:, d:], shifted)], dim=1)
         d *= 2
@@ -248,19 +253,20 @@ def _seg_scan(seg_ids, vals, op):
     joint = torch.cat([torch.ones(1, dtype=torch.bool, device=vals.device),
                        first_seg[1:] != carry_seg[:-1]])
     g = internal | joint
+    ex1 = (slice(None),) + (None,) * len(lanes)
     d = 1
     while d < R:
         ga, gb = g[:-d], g[d:]
         combined = _apply(op, cv[:-d], cv[d:])
-        cv = torch.cat([cv[:d], torch.where(gb, cv[d:], combined)])
+        cv = torch.cat([cv[:d], torch.where(gb[ex1], cv[d:], combined)])
         g = torch.cat([g[:d], ga | gb])
         d *= 2
     # exclusive prefix for each block r = inclusive at r-1 when chained
-    pfx = torch.cat([cv.new_full((1,), ident), cv[:-1]])
-    pfx = torch.where(joint, ident, pfx)
-    in_first_run = s2 == first_seg[:, None]
+    pfx = torch.cat([cv.new_full((1,) + lanes, ident), cv[:-1]])
+    pfx = torch.where(joint[ex1], ident, pfx)
+    in_first_run = (s2 == first_seg[:, None])[ex]
     m = torch.where(in_first_run, _apply(op, m, pfx[:, None]), m)
-    return m.reshape(R * _SEG_B)[:n]
+    return m.reshape((R * _SEG_B,) + lanes)[:n]
 
 
 def seg_doubling_min(seg_ids, vals):

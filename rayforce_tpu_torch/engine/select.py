@@ -16,7 +16,11 @@ it. The engine is picked by the size of the dense key code space:
   engine/sortagg.py;
 - more than dense_max codes: engine/wide.py.
 
-The multi-device mesh is not ported (`device.mesh()` is None; ROADMAP).
+With a device mesh (RAYFORCE_MESH, `device.mesh()`), a dense plan runs
+on every shard's rows with its partial lanes combined across shards
+(psum / pmin / pmax, `spmd`) unless it needs a median, and a grouped
+select beyond 512 codes (or with `dev`) runs over the mesh through
+engine/dgroup.py when its shape is covered.
 Aggregate null semantics are oracle-pinned (tools/oracle.py against the
 reference binary): GROUPED sum PROPAGATES nulls (ADD accumulators)
 while a no-by select sums whole-vector and SKIPS them; avg skips;
@@ -95,7 +99,7 @@ class _Agg:
 
 class _Plan:
     __slots__ = ("fn", "col_objs", "key_meta", "aggs", "n_codes",
-                 "lanes_meta")
+                 "lanes_meta", "spmd")
 
 
 def _null_mask(arr, rtype):
@@ -220,6 +224,18 @@ def _build_plan(src, outs, where_ast, by_ast):
 
     small = n_codes <= G.SMALL_N
     has_dev = any(a.name == "dev" for a in aggs)
+    if by_pairs and (not small or has_dev):
+        m = dev.mesh()
+        if m is not None:
+            # mesh mode: the partial-aggregate all_to_all exchange
+            # carries raw i64 codes, so any single-word code space
+            # (< 2^61) distributes, beyond the single-device dense
+            # ceiling too; shapes it does not cover run on one device
+            from . import dgroup
+            dp = dgroup.build_plan(src, n_rows, cw, key_cs, key_meta,
+                                   n_codes, aggs, m)
+            if dp is not None:
+                return dp
     if n_codes > dev._cfg["dense_max"]:
         from . import wide
         return wide.build_plan(src, n_rows, cw, key_cs, key_meta,
@@ -332,8 +348,17 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
 
     NC = n_codes
     lanes_meta = {}
+    # on a mesh the plan runs on every shard's rows and combines their
+    # dense partial lanes (a median needs whole groups: one device)
+    m = dev.mesh()
+    spmd = m is not None and not need_med
+    n_dev = m.n if spmd else 1
+    rows_local = -(-n_rows // n_dev)
 
-    def pipeline(*cols):
+    def inputs(cols, n, row0):
+        """Rows [row0, row0 + n) of the (padded) table as the dense scans
+        take them: (codes, value arrays, their types, and the named
+        lanes {"task" | "sum" | "min" | "max": [(name, lane)]})."""
         d = cols[0].device if cols else dev.device()
 
         def sub_env(mapping):
@@ -342,6 +367,10 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
         mask = None
         if cw is not None:
             mask = as_tensor(cw.fn(sub_env(w_map))).to(torch.bool)
+        if spmd:
+            # shard padding rows (global row id >= n_rows) are masked
+            real = row0 + torch.arange(n, device=d) < n_rows
+            mask = real if mask is None else mask & real
         codes = None
         for ck, mp, (_nm, lo, rng, _rt, _dom) in zip(
                 key_cs, key_maps, key_meta):
@@ -349,8 +378,8 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
             cc = (arr.to(I64) - lo).to(I32)
             codes = cc if codes is None else codes * rng + cc
         if codes is None:
-            codes = torch.zeros(n_rows, dtype=I32, device=d)
-        codes = codes.expand(n_rows)
+            codes = torch.zeros(n, dtype=I32, device=d)
+        codes = codes.expand(n)
         if mask is not None:
             codes = torch.where(mask, codes, NC)
 
@@ -362,62 +391,56 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
                 arrs[cid] = as_tensor(a.inner.fn(sub_env(agg_maps[cid])))
                 rtypes[cid] = a.inner.rtype
 
-        # ---- exact limb sums of the full-width integer columns ----------
-        mm = {}
+        # exact limb sums of the full-width integer columns
         tasks = []
         for cid in sorted(need_limbs):
             lo, hi = need_limbs[cid]
             nv = T.NULL_BY_TYPE.get(rtypes[cid])
             limbs, _nw, _b = G.int_limb_weights(arrs[cid], nv, lo, hi)
             tasks += [(f"limb{cid}_{i}", lb) for i, lb in enumerate(limbs)]
-        if tasks:
-            dense = G.matmul_tasks_scan(codes, [w for _, w in tasks],
-                                        NC + 1, n_rows)
-            mm = {nm: x[:NC] for (nm, _), x in zip(tasks, dense)}
-
-        # ---- one dense pass: counts, first/last rows, sums, extrema -----
-        agg_raw = {}   # lane name -> dense device lane (pre-order)
-        sums, s_names = [], []
-        mins, mn_names = [], []
-        maxs, mx_names = [], []
-        for cid in sorted(need_nullcnt):
-            sums.append(_null_mask(arrs[cid], rtypes[cid]).to(I64))
-            s_names.append(f"nullcnt{cid}")
+        sums = [(f"nullcnt{cid}",
+                 _null_mask(arrs[cid], rtypes[cid]).to(I64))
+                for cid in sorted(need_nullcnt)]
         for cid in sorted(need_isumb):
             z = arrs[cid].to(I64)
             nv = T.NULL_BY_TYPE.get(rtypes[cid])
             if nv is not None:
                 z = torch.where(z == int(nv), 0, z)
-            sums.append(z)
-            s_names.append(f"isum{cid}")
-        for cid in sorted(need_fsum):
-            arr = arrs[cid]
-            sums.append(torch.where(torch.isnan(arr), 0.0, arr))
-            s_names.append(f"fsum{cid}")
-        for cid in sorted(need_min):
-            mins.append(_minmax_payload(arrs[cid], rtypes[cid], True))
-            mn_names.append(f"min{cid}")
-        for cid in sorted(need_max):
-            maxs.append(_minmax_payload(arrs[cid], rtypes[cid], False))
-            mx_names.append(f"max{cid}")
-        bc = G.bcast_scan(codes, NC, n_rows, sums=tuple(sums),
-                          mins=tuple(mins), maxs=tuple(maxs),
+            sums.append((f"isum{cid}", z))
+        sums += [(f"fsum{cid}",
+                  torch.where(torch.isnan(arrs[cid]), 0.0, arrs[cid]))
+                 for cid in sorted(need_fsum)]
+        mins = [(f"min{cid}", _minmax_payload(arrs[cid], rtypes[cid], True))
+                for cid in sorted(need_min)]
+        maxs = [(f"max{cid}", _minmax_payload(arrs[cid], rtypes[cid], False))
+                for cid in sorted(need_max)]
+        return codes, arrs, rtypes, {"task": tasks, "sum": sums,
+                                     "min": mins, "max": maxs}
+
+    def partials(cols):
+        """One device's dense lanes: counts, first/last row ids, null
+        counts, limb and bounded sums, extrema and medians."""
+        codes, arrs, rtypes, lanes = inputs(cols, n_rows, 0)
+        n = n_rows
+        part = {}
+        if lanes["task"]:
+            dense = G.matmul_tasks_scan(codes, [w for _, w in lanes["task"]],
+                                        NC + 1, n)
+            part.update({nm: x[:NC]
+                         for (nm, _), x in zip(lanes["task"], dense)})
+
+        # ---- one dense pass: counts, first/last rows, sums, extrema -----
+        bc = G.bcast_scan(codes, NC, n,
+                          *[tuple(x for _, x in lanes[k]) for k in _SCANNED],
                           want_counts=True, want_fidx=True)
-        counts = bc["counts"].to(F64)
-        fidx = bc["fidx"]                # KEY_MAX for empty groups
-        lidx = bc["lidx"]
-        for i, nm in enumerate(s_names):
-            if nm.startswith("nullcnt"):
-                mm[nm] = bc[f"sum{i}"]
-            else:
-                agg_raw[nm] = bc[f"sum{i}"]
-        for i, nm in enumerate(mn_names):
-            agg_raw[nm] = bc[f"min{i}"]
-        for i, nm in enumerate(mx_names):
-            agg_raw[nm] = bc[f"max{i}"]
+        part.update({k: bc[k] for k in ("counts", "fidx", "lidx")})
+        for k in _SCANNED:
+            part.update({nm: bc[f"{k}{i}"]
+                         for i, (nm, _) in enumerate(lanes[k])})
 
         # ---- med: per-column (codes, value) sort + middle gathers ----
         if need_med:
+            counts = bc["counts"].to(F64)
             cnt64 = counts.to(I64)
             m_starts = torch.cat([cnt64.new_zeros(1),
                                   torch.cumsum(cnt64, 0)[:-1]])
@@ -436,14 +459,47 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
                 if narrow:
                     key = key.to(I32)
             sval = sort_by_code(codes, key)
-            e = (counts - mm[f"nullcnt{cid}"]
+            e = (counts - part[f"nullcnt{cid}"]
                  if cid in need_nullcnt else counts).to(I64)
             lo_i = torch.clamp(m_starts + torch.clamp(e - 1, min=0) // 2,
-                               0, n_rows - 1)
-            hi_i = torch.clamp(m_starts + e // 2, 0, n_rows - 1)
+                               0, n - 1)
+            hi_i = torch.clamp(m_starts + e // 2, 0, n - 1)
             v = (sval[lo_i].to(F64) + sval[hi_i].to(F64)) / 2.0
-            agg_raw[f"med{cid}"] = torch.where(e == 0, np.nan, v)
+            part[f"med{cid}"] = torch.where(e == 0, np.nan, v)
+        return part
 
+    def spmd_partials(cols):
+        """The mesh's dense lanes: every shard's inputs through
+        dist_select_small, combined across shards in shard order."""
+        from ..parallel import dist
+        ins = [inputs([c[s] for c in cols], rows_local, s * rows_local)
+               for s in range(n_dev)]
+        lanes = [x[3] for x in ins]
+        names = {k: [nm for nm, _ in v] for k, v in lanes[0].items()}
+        kern = dist.dist_select_small(
+            m, NC, rows_local, len(names["sum"]), len(names["min"]),
+            len(names["max"]), len(names["task"])).inner
+        # the kernel's lanes: tasks, sums, mins, maxs, each per shard
+        out = kern([x[0] for x in ins],
+                   *[[ln[k][i][1] for ln in lanes]
+                     for k in ("task",) + _SCANNED
+                     for i in range(len(names[k]))])
+        part = {nm: out[f"{k}{i}"] for k, v in names.items()
+                for i, nm in enumerate(v)}
+        part.update({k: out[k] for k in ("counts", "fidx", "lidx")})
+        return part
+
+    def finalize(part):
+        """Order, decode and narrow the (combined) dense lanes into one
+        packed buffer."""
+        d = part["counts"].device
+        counts = part["counts"].to(F64)
+        fidx = part["fidx"]              # KEY_MAX for empty groups
+        lidx = part["lidx"]
+        mm = {nm: x for nm, x in part.items()
+              if nm.startswith(("nullcnt", "limb"))}
+        agg_raw = {nm: x for nm, x in part.items()
+                   if nm.startswith(("isum", "fsum", "min", "max", "med"))}
         # ---- device-side finalization: order, decode, narrow ----
         # first-appearance order: a stable sort of first-row ids as one
         # i32 word (row ids < 2^31 - 1; empty groups hold KEY_MAX, here
@@ -572,8 +628,12 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
         lanes_meta["layout"] = layout
         return buf
 
+    def pipeline(*cols):
+        return finalize(spmd_partials(cols) if spmd else partials(cols))
+
     plan = _Plan()
     plan.fn = pipeline
+    plan.spmd = spmd
     plan.col_objs = col_objs
     plan.key_meta = key_meta
     plan.aggs = aggs
@@ -592,6 +652,22 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
             a.meta["bias"] = bias
             a.meta["cid"] = cid
     return plan
+
+
+# the lanes bcast_scan takes, in its argument order
+_SCANNED = ("sum", "min", "max")
+
+
+def _stacked_bytes(layout) -> int:
+    """The bytes of a packed result as the reference stacks it: one
+    buffer per lane dtype (i64, f64, i32), each lane padded to the
+    widest of its buffer. The exchange model counts a replicated result
+    at this size in both packages."""
+    size = {"i64": 8, "f64": 8, "i32": 4}
+    widths: dict = {}
+    for _nm, tag, _off, ln in layout:
+        widths.setdefault(tag, []).append(ln)
+    return sum(len(w) * max(w) * size[t] for t, w in widths.items())
 
 
 def _host_gather(col_obj: Obj, idx: np.ndarray) -> Obj:
@@ -632,7 +708,8 @@ def try_select_device(interp, src: Obj, outs, where_ast, by_ast, lim,
     key = (id(src), len(src),
            _fingerprint(where_ast) if where_ast is not None else "",
            _fingerprint(by_ast) if by_ast is not None else "",
-           tuple((sid, _fingerprint(ast)) for sid, ast in outs))
+           tuple((sid, _fingerprint(ast)) for sid, ast in outs),
+           dev.mesh_key())
     from ..core import profiler as _prof
     ent = _plan_cache.get(key)
     plan = ent[0] if ent is not None else None
@@ -650,11 +727,15 @@ def try_select_device(interp, src: Obj, outs, where_ast, by_ast, lim,
     if plan == "unsupported":
         return None
 
+    from . import dgroup as _dg
     from . import sortagg as _sa
     from . import wide as _wd
-    if isinstance(plan, (_sa._SAPlan, _wd._WPlan)):
+    if isinstance(plan, (_dg._DPlan, _sa._SAPlan, _wd._WPlan)):
         t0 = time.perf_counter()
-        if isinstance(plan, _sa._SAPlan):
+        if isinstance(plan, _dg._DPlan):
+            r = _dg.run(plan)
+            prof = {"engine": "dist-group"}
+        elif isinstance(plan, _sa._SAPlan):
             r = _sa.run(plan)
             prof = {"engine": "sortagg", "n_codes": plan.n_codes,
                     "exact": plan.exact}
@@ -668,9 +749,20 @@ def try_select_device(interp, src: Obj, outs, where_ast, by_ast, lim,
             if isinstance(r, str) else r
 
     t0 = time.perf_counter()
-    cols = [dev.dev_col(c) for c in plan.col_objs]
+    if plan.spmd:
+        m = dev.mesh()
+        cols = [dev.dev_col_sharded(c, m) for c in plan.col_objs]
+    else:
+        cols = [dev.dev_col(c) for c in plan.col_objs]
     buf = plan.fn(*cols)
     t1 = time.perf_counter()
+    if plan.spmd:
+        # the combines counted as the reference counts its inline ones:
+        # ~2*(n-1)*replicated bytes
+        from ..parallel import dist as _dist
+        _dist.stats["exchanged_bytes"] += 2 * (m.n - 1) * _stacked_bytes(
+            plan.lanes_meta["layout"])
+        _dist.stats["kernel_calls"] += 1
     buf = buf.cpu().numpy()         # ONE device->host transfer
     t2 = time.perf_counter()
     lanes = G.unpack(buf, plan.lanes_meta["layout"])
@@ -678,7 +770,7 @@ def try_select_device(interp, src: Obj, outs, where_ast, by_ast, lim,
     last_profile.update({"dispatch_ms": (t1 - t0) * 1000,
                          "exec+fetch_ms": (t2 - t1) * 1000,
                          "n_codes": plan.n_codes,
-                         "spmd": False})
+                         "spmd": plan.spmd})
 
     k = int(lanes["nocc"][0])
     if k == 0:

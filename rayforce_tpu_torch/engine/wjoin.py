@@ -248,11 +248,17 @@ def _k_first_last(sv, li, ri, ok, rtype, last):
 
 def _k_sum_avg(sv, li, ri, ok, rtype, want_avg):
     nn = _null_mask_t(sv, rtype)
-    vz = torch.where(nn, 0, sv).to(F64)
-    cs = _prefix_f64(vz)
-    s = cs[ri + 1] - cs[li]
     cn = _prefix_count(nn)
     n_null = cn[ri + 1] - cn[li]
+    if not want_avg and rtype != T.F64:
+        # an integer sum is the difference of i64 prefix sums: exact,
+        # and wrapping past 2^63 as the host path's np.cumsum does
+        vz = torch.where(nn, 0, sv.to(I64))
+        cs = torch.cat([vz.new_zeros(1), _scan(vz, "sum")])
+        s = cs[ri + 1] - cs[li]
+    else:
+        cs = _prefix_f64(torch.where(nn, 0, sv).to(F64))
+        s = cs[ri + 1] - cs[li]
     if not want_avg:
         # a window sum PROPAGATES nulls (ADD accumulators, aggr.c;
         # oracle-pinned) and an EMPTY window sums to typed NULL, not 0

@@ -1,0 +1,816 @@
+"""Multi-shard kernels over an in-process device mesh.
+
+The reference scales within one node via a pinned thread pool with
+chunk-parallel kernels and merge steps (core/pool.c pool_map,
+core/index.c index_group_distribute, core/aggr.c AGGR_COLLECT). Here the
+same decompositions run over a mesh of N shards driven by one process:
+
+- rows are sharded over the mesh axis ("d"), shard i holding rows
+  [i * rows_local, (i + 1) * rows_local) of the table padded to a
+  multiple of N, every shard on the engine's device (so 8 shards share
+  one card, or CPU torch in the tests);
+- group-by computes per-shard dense partial aggregates and combines them
+  with `psum` / `pmin` / `pmax`, the analogue of per-thread partial
+  vectors + the AGGR_COLLECT pairwise merge (aggr.c:163-181);
+- high-cardinality group-bys and medians route partials or rows by code
+  with `all_to_all`, the analogue of the radix partition scatter
+  (index.c:2556-2729).
+
+A collective is a plain function over the list of per-shard tensors. Its
+reductions run in the fixed shard order 0..N-1, so a rerun is bit for bit
+the same; a move between shards is `.to(device)`, a device-local copy
+while the shards share one device. A kernel whose collectives fall in the
+middle is a sequence of stages, each a loop over the shards, with the
+collective between them. A replicated result is computed once, on shard
+0's device. Every sort goes through the engine's psort entry, so on the
+card each is a launch of the CUDA radix sort.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..engine import groupby as G
+from ..engine.psort import f64_from_order, f64_order, sort_lex
+
+I32, I64, F64, BOOL = torch.int32, torch.int64, torch.float64, torch.bool
+KEY_MAX = G.KEY_MAX
+I64_MIN = G.I64_MIN
+
+# -- exchange accounting ------------------------------------------------------
+#
+# Every distributed kernel notes its per-invocation cross-shard traffic
+# under the standard ring-algorithm cost model, the same formulas as the
+# reference's, so a query reports the bytes a multi-device mesh would
+# move:
+#   all_to_all of per-shard buffer B bytes -> B*(n-1) total on the wire
+#   psum/pmin/pmax of replicated result R  -> 2*R*(n-1)
+#   all_gather of per-shard shard S        -> n*(n-1)*S
+
+stats = {"exchanged_bytes": 0, "kernel_calls": 0}
+
+
+def reset_stats():
+    stats["exchanged_bytes"] = 0
+    stats["kernel_calls"] = 0
+
+
+def _counted(fn, est):
+    """Wrap a dist kernel; `est(*args) -> bytes` runs on the host at
+    call time."""
+    def run(*a):
+        stats["exchanged_bytes"] += int(est(*a))
+        stats["kernel_calls"] += 1
+        return fn(*a)
+    run.inner = fn    # for callers composing the kernel into their own
+    run.est = est     # run: call inner, account with est yourself
+    return run
+
+
+# -- the mesh -----------------------------------------------------------------
+
+class Mesh:
+    """N shards along one axis; shard i runs on `devices[i]`."""
+
+    def __init__(self, devices, axis="d"):
+        self.devices = [torch.device(d) for d in devices]
+        self.axis_names = (axis,)
+        self.key = (len(self.devices),
+                    tuple(str(d) for d in self.devices))
+
+    @property
+    def n(self) -> int:
+        return len(self.devices)
+
+
+def make_mesh(n_devices=None, axis="d", device=None) -> Mesh:
+    """A mesh of n_devices shards (default: one per visible card), every
+    shard on `device` (default: the engine's device). One process drives
+    every shard. Spreading the shards over several cards is not verified
+    on a host of several cards yet (ROADMAP queue 3), so they share one."""
+    if device is None:
+        from ..engine import device as dev
+        device = dev.device()
+    d = torch.device(device)
+    if n_devices is None:
+        n_devices = torch.cuda.device_count() if d.type == "cuda" else 1
+    n = int(n_devices)
+    if n < 1:
+        raise ValueError(f"a mesh needs at least one shard, not {n}")
+    return Mesh([d] * n, axis)
+
+
+def shard_rows(mesh: Mesh, arr):
+    """Row-shard a host array or tensor over the mesh, padded with zeros
+    to a multiple of the shard count. Returns (per-shard tensors, pad)."""
+    t = arr if isinstance(arr, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(arr))
+    n = mesh.n
+    pad = (-int(t.shape[0])) % n
+    if pad:
+        t = torch.cat([t, t.new_zeros(pad)])
+    per = int(t.shape[0]) // n
+    return [t[i * per:(i + 1) * per].to(d)
+            for i, d in enumerate(mesh.devices)], pad
+
+
+# -- collectives over per-shard lists -----------------------------------------
+
+def _replicate(x, like):
+    return [x.to(y.device) for y in like]
+
+
+def _reduce(xs, op):
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = op(acc, x.to(acc.device))
+    return _replicate(acc, xs)
+
+
+def psum(xs):
+    """Elementwise sum over shards, in shard order; replicated."""
+    return _reduce(xs, torch.add)
+
+
+def pmin(xs):
+    return _reduce(xs, torch.minimum)
+
+
+def pmax(xs):
+    return _reduce(xs, torch.maximum)
+
+
+def all_to_all(xs):
+    """xs[s] holds N equal blocks, block d bound for shard d: out[d] is
+    the blocks in[s][d] over s, concatenated in shard order."""
+    n = len(xs)
+    parts = [x.reshape(n, -1) for x in xs]
+    return [torch.cat([parts[s][d].to(xs[d].device) for s in range(n)])
+            for d in range(n)]
+
+
+def all_gather(xs):
+    """Every shard's tensor, concatenated in shard order; replicated."""
+    return _replicate(torch.cat([x.to(xs[0].device) for x in xs]), xs)
+
+
+def axis_index(mesh: Mesh):
+    """Each shard's position along the mesh axis."""
+    return list(range(mesh.n))
+
+
+# -- shard-local helpers ------------------------------------------------------
+
+def _new_run(sc):
+    """True where a sorted key starts a run."""
+    return torch.cat([torch.ones(1, dtype=BOOL, device=sc.device),
+                      sc[1:] != sc[:-1]])
+
+
+def _run_end(sc):
+    """True where a sorted key ends a run."""
+    return torch.cat([sc[1:] != sc[:-1],
+                      torch.ones(1, dtype=BOOL, device=sc.device)])
+
+
+def _rscan(rs, x, op):
+    """Segmented scan from each row to its segment's end (rs: the
+    reversed segment ids), so a segment's first row holds its total —
+    the reference's reversed `seg_doubling_*` layout and summation
+    order."""
+    return G._seg_scan(rs, x.flip(0), op).flip(0)
+
+
+def _rscan_lanes(rs, ops, xs):
+    """`_rscan` of each lane xs[i] with its op: the lanes of one op are
+    scanned together, as the columns of one (n, L) scan."""
+    out = [None] * len(xs)
+    for op in set(ops):
+        idx = [i for i, o in enumerate(ops) if o == op]
+        res = _rscan(rs, torch.stack([xs[i] for i in idx], 1), op)
+        for j, i in enumerate(idx):
+            out[i] = res[:, j]
+    return out
+
+
+# A dropped row goes to one of this many slots past a buffer's end, row
+# r to slot r % _DROP: on the card, a million stores to one address
+# would queue on it.
+_DROP = 4096
+
+
+def _dropped(n, size, device):
+    return size + (torch.arange(n, device=device) & (_DROP - 1))
+
+
+def _compact_targets(flags, cap):
+    """Slot of each flagged row in a buffer of `cap` slots, in row order
+    (a flag prefix count); unflagged rows and flagged rows past the cap
+    go past the end, and are dropped."""
+    pos = torch.cumsum(flags.to(I64), 0) - 1
+    return torch.where(flags & (pos < cap), pos,
+                       _dropped(int(flags.shape[0]), cap, flags.device))
+
+
+def _place(x, tgt, size, fill):
+    """x's rows at slots `tgt` of a buffer of `size` slots filled with
+    `fill`; the slots past `size` take the dropped rows and are cut."""
+    buf = torch.full((size + _DROP,), fill, dtype=x.dtype, device=x.device)
+    buf[tgt] = x
+    return buf[:size]
+
+
+def _bucket_slots(dest, n_dest, cap, live):
+    """Slot of each live row in a send buffer of n_dest buckets of `cap`
+    rows, rows in row order within their bucket: one prefix count over
+    the (bucket, row) flags laid out bucket by bucket, less the rows of
+    the buckets before. Rows past a bucket's cap and dead rows are
+    dropped. Returns (slots, ok: live and placed)."""
+    n = int(dest.shape[0])
+    d = torch.where(live, dest, 0)
+    hit = (torch.arange(n_dest, device=d.device)[:, None] == d[None, :]) \
+        & live[None, :]
+    cs = torch.cumsum(hit.reshape(-1).to(I64), 0).reshape(n_dest, n)
+    before = torch.cat([cs.new_zeros(1), cs[:-1, -1]])
+    within = cs.gather(0, d[None, :])[0] - before[d] - 1
+    ok = live & (within < cap)
+    return torch.where(ok, d * cap + within,
+                       _dropped(n, n_dest * cap, d.device)), ok
+
+
+def _sort_perm(keys):
+    """The stable ascending order of the lexicographic keys (int64 row
+    ids), through the psort entry."""
+    return sort_lex(keys, perm=True)[2].long()
+
+
+# -- distributed dense group-by ----------------------------------------------
+#
+# Per-shard partials come from the engine's own dense pipeline
+# (groupby.bcast_scan and its exact integer sums); the cross-shard
+# combine is psum / pmin / pmax. f64 sums are bcast_scan's code sort +
+# segmented scan, so a rerun on the card is bit for bit the same.
+# dist_select_small is the kernel of the dense plan on a mesh
+# (engine/select.py `spmd`); the narrower kernels below are entries over
+# its shard stage, kept at the reference's signatures and byte counts.
+
+def _select_small(n_codes, shard_rows_n, codes, ints=(), sums=(), mins=(),
+                  maxs=()):
+    """dist_select_small's body over per-shard lists (`ints`, `sums`,
+    `mins`, `maxs`: lanes, each a per-shard list)."""
+    parts = []
+    for me, c in enumerate(codes):
+        n = int(c.shape[0])
+        bc = G.bcast_scan(c, n_codes, n, sums=tuple(x[me] for x in sums),
+                          mins=tuple(x[me] for x in mins),
+                          maxs=tuple(x[me] for x in maxs),
+                          want_counts=True, want_fidx=True)
+        off = me * shard_rows_n
+        p = {"counts": bc["counts"],
+             "fidx": torch.where(bc["fidx"] == KEY_MAX, KEY_MAX,
+                                 bc["fidx"] + off),
+             "lidx": torch.where(bc["lidx"] < 0, -1, bc["lidx"] + off)}
+        if ints:
+            dense = G.matmul_tasks_scan(c, [w[me] for w in ints],
+                                        n_codes + 1, n)
+            p.update({f"task{i}": x[:n_codes] for i, x in enumerate(dense)})
+        p.update((k, v) for k, v in bc.items()
+                 if k.startswith(("sum", "min", "max")))
+        parts.append(p)
+    out = {}
+    for name in parts[0]:
+        comb = pmin if name == "fidx" or name.startswith("min") else \
+            pmax if name == "lidx" or name.startswith("max") else psum
+        out[name] = comb([p[name] for p in parts])[0]
+    return out
+
+
+def dist_select_small(mesh: Mesh, n_codes: int, shard_rows_n: int,
+                      n_sums: int, n_mins: int, n_maxs: int,
+                      n_int_tasks: int):
+    """The mesh version of engine/select.py's dense pipeline: each shard
+    runs the dense scans over its rows; combines are psum (counts, sums,
+    integer tasks), pmin (fidx, mins) and pmax (lidx, maxs).
+
+    Inputs (per-shard lists): codes (trash = n_codes for filtered rows),
+    integer task weights, f64 or integer sum lanes (nulls zeroed),
+    min/max i64 or f64 lanes (nulls pre-mapped). Output: a dict of
+    replicated dense lanes (counts i32, tasks as exact f64, sums f64)."""
+    def kernel(codes, *rest):
+        a, b, c = n_int_tasks, n_int_tasks + n_sums, \
+            n_int_tasks + n_sums + n_mins
+        return _select_small(n_codes, shard_rows_n, codes, rest[:a],
+                             rest[a:b], rest[b:c], rest[c:])
+
+    n_dev = mesh.n
+    _R = (1 + n_int_tasks) * n_codes * 4 + 2 * n_codes * 8 + \
+        (n_sums + n_mins + n_maxs) * n_codes * 8
+    return _counted(kernel, lambda *a: 2 * (n_dev - 1) * _R)
+
+
+def dist_groupby_sum(mesh: Mesh, n_codes: int):
+    """Distributed group-by-sum over codes in [0, n_codes]: per-shard
+    dense f64 partials, psum-combined. codes/values are per-shard lists;
+    the result, (n_codes + 1,) f64, is replicated."""
+    def kernel(codes, values):
+        return _select_small(n_codes + 1, 0, codes,
+                             sums=[[v.to(F64) for v in values]])["sum0"]
+
+    n_dev = mesh.n
+    return _counted(kernel,
+                    lambda *a: 2 * (n_dev - 1) * (n_codes + 1) * 4)
+
+
+def dist_groupby_count_first(mesh: Mesh, n_codes: int, shard_rows_n: int):
+    """Distributed counts (i32) + global first-row index (i64, KEY_MAX
+    for an empty code) per dense code in [0, n_codes]."""
+    def kernel(codes):
+        out = _select_small(n_codes + 1, shard_rows_n, codes)
+        return out["counts"], out["fidx"]
+
+    n_dev = mesh.n
+    return _counted(
+        kernel, lambda *a: 2 * (n_dev - 1) * (n_codes + 1) * (4 + 8))
+
+
+def dist_filter_group_sum(mesh: Mesh, n_codes: int):
+    """The fused step: filter mask + dense codes + partial sums + psum.
+    fn(codes, values, mask) -> (sums, counts), each (n_codes + 1,) f64
+    and replicated; filtered rows land in slot n_codes."""
+    def kernel(codes, values, mask):
+        cm = [torch.where(m.to(BOOL), c, n_codes)
+              for c, m in zip(codes, mask)]
+        out = _select_small(n_codes + 1, 0, cm,
+                            sums=[[v.to(F64) for v in values]])
+        return out["sum0"], out["counts"].to(F64)
+
+    n_dev = mesh.n
+    return _counted(
+        kernel, lambda *a: 2 * (n_dev - 1) * 2 * (n_codes + 1) * 4)
+
+
+# -- distributed shuffle (all_to_all by key) ----------------------------------
+
+def _shuffle(dest, live, cols, n_dev, cap):
+    """The raw-row exchange: each shard's live rows go to shard `dest`,
+    up to `cap` rows per (source, destination) pair, in row order.
+    dest, live: per-shard lists; cols: per shard, its [(lane, fill)].
+    Returns (per lane, the received per-shard tensors, source shards in
+    order; per shard, the (1,) i64 count of live rows past a cap)."""
+    sends, ovf = [], []
+    for d, lv, cs in zip(dest, live, cols):
+        slot, ok = _bucket_slots(d, n_dev, cap, lv)
+        ovf.append((lv & ~ok).sum().to(I64).reshape(1))
+        sends.append([_place(x, slot, n_dev * cap, f) for x, f in cs])
+    return [all_to_all([s[j] for s in sends])
+            for j in range(len(cols[0]))], ovf
+
+
+def dist_shuffle(mesh: Mesh, capacity: int):
+    """Route rows to the shard owning key % n_shards.
+
+    Returns fn(keys, values) -> (keys', values', valid', overflow): each
+    shard receives up to `capacity` rows per source shard (per-shard
+    lists of n_shards * capacity rows, source shards in order). Rows
+    beyond capacity are NOT sent; `overflow` ((1,) i64) counts them so
+    the caller can re-run with a larger capacity — nothing drops
+    silently. The analogue of the reference's radix scatter with
+    per-thread write cursors (index.c:2542-2553); the grouped median's
+    exchange is the same `_shuffle`."""
+    n_dev = mesh.n
+
+    def kernel(keys, values):
+        (rk, rv), ovf = _shuffle(
+            [k % n_dev for k in keys],
+            [torch.ones(k.shape, dtype=BOOL, device=k.device) for k in keys],
+            [[(k, -1), (v, 0)] for k, v in zip(keys, values)],
+            n_dev, capacity)
+        return rk, rv, [x >= 0 for x in rk], psum(ovf)[0]
+
+    return _counted(
+        kernel, lambda *a: 2 * n_dev * (n_dev - 1) * capacity * 8)
+
+
+def dist_shuffle_auto(mesh: Mesh, start_capacity: int):
+    """Overflow-safe shuffle: doubles capacity and re-runs until no
+    row overflows."""
+    fns: dict = {}
+
+    def run(keys, values):
+        c = start_capacity
+        while True:
+            if c not in fns:
+                fns[c] = dist_shuffle(mesh, c)
+            rk, rv, valid, ovf = fns[c](keys, values)
+            if int(ovf[0]) == 0:
+                return rk, rv, valid
+            c *= 2
+
+    return run
+
+
+# -- distributed wide group-by (partial-aggregate exchange) -------------------
+#
+# The mesh version of engine/wide.py, following the reference's
+# radix-partition blueprint (core/index.c:2556-2729):
+#
+#   stage A (per shard): local sort-agg over the shard's rows ->
+#     compacted partial groups (code, count, fidx, lanes). A heavy key
+#     contributes at most ONE partial per shard, so key skew cannot
+#     overload the exchange.
+#   stage B: all_to_all partials to the shard owning code % n. The
+#     per-(src, dst) capacity cannot overflow: one source's partials to
+#     one destination are distinct codes that destination owns.
+#   stage C (per shard): merge received partials (sort by code, fidx;
+#     segmented combine), compact to `out_cap` groups. out_cap CAN
+#     overflow under extreme hash imbalance, so the kernel returns an
+#     overflow count; dist_wide_groupby_auto retries doubled.
+#   stage D: all_gather merged groups, ordered by global first-row id
+#     (first-appearance order, replicated result).
+
+_LANE_FILL = {"sum": 0.0, "min": float("inf"), "max": float("-inf"),
+              "first": 0.0, "last": 0.0}
+
+
+def dist_wide_groupby(mesh: Mesh, rows_local: int, out_cap: int,
+                      lane_ops=("sum",), n_codes=None):
+    """The distributed group-by kernel with one f64 value lane per entry
+    of `lane_ops` (each "sum" | "min" | "max" | "first" | "last").
+
+    fn(codes, *lanes) with per-shard i64 codes (masked rows = -1) and
+    len(lane_ops) f64 lanes; returns replicated (ng, overflow, codes,
+    counts, fidx, *lane_results) where the first `ng` entries of each
+    output are the groups in global first-appearance order.
+
+    "first"/"last" lanes hold the lane value at the group's globally
+    first/last row: each shard's partial keeps the value at its first
+    and last sorted row; the merge resolves first by its (code,
+    first-row id) sort and last by a second (code, -last-row id) sort.
+
+    With `n_codes` (the dense code-space size) known, a shard emits at
+    most min(rows_local, n_codes) partials and one source sends one
+    destination at most ceil(n_codes / n) of them, so the buffers shrink
+    to ~n_codes / n each without losing the zero-drop guarantee."""
+    n_dev = mesh.n
+    C = rows_local if n_codes is None else min(rows_local, n_codes)
+    D = C if n_codes is None else max(min(C, -(-n_codes // n_dev)), 1)
+    n_lanes = len(lane_ops)
+    has_last = "last" in lane_ops
+    size = n_dev * D
+
+    def stage_a(me, codes, lanes):
+        """Local sort-agg: the shard's compacted partials (code, count,
+        first row, lanes, last row), each placed in its send buffer of
+        n buckets of D rows."""
+        n = int(codes.shape[0])
+        dv = codes.device
+        pos_bits = max(int(n - 1).bit_length(), 1)
+        posmask = (1 << pos_bits) - 1
+        key = torch.where(codes >= 0,
+                          (codes << pos_bits) | torch.arange(n, device=dv),
+                          KEY_MAX)
+        (skey,), _, perm = sort_lex([key], perm=True)
+        perm = perm.long()
+        svals = [x[perm] for x in lanes]
+        sc = skey >> pos_bits
+        valid = skey != KEY_MAX
+        flags = valid & _new_run(sc)
+        is_last = valid & _run_end(sc)
+        rs = torch.cumsum(flags.to(I32) + (~valid).to(I32), 0,
+                          dtype=I32).flip(0)
+        gid = (skey & posmask) + me * n          # global row id
+        tf = _compact_targets(flags, C)
+        tl = _compact_targets(is_last, C)
+        iota = torch.arange(n, device=dv)
+        start = _place(iota, tf, C, 0)
+        end = _place(iota, tl, C, 0)
+        pcode = _place(sc, tf, C, -1)
+        out = [(pcode, -1), (end - start + 1, 0),
+               (_place(gid, tf, C, KEY_MAX), KEY_MAX)]
+        scan = [i for i, op in enumerate(lane_ops)
+                if op not in ("first", "last")]
+        red = dict(zip(scan, _rscan_lanes(
+            rs, [lane_ops[i] for i in scan], [svals[i] for i in scan])))
+        for i, (op, sv) in enumerate(zip(lane_ops, svals)):
+            if op == "first":
+                v = _place(sv, tf, C, 0.0)
+            elif op == "last":
+                v = _place(sv, tl, C, 0.0)
+            else:
+                v = _place(red[i], tf, C, 0.0)
+            out.append((v, _LANE_FILL[op]))
+        if has_last:
+            out.append((_place(gid, tl, C, -1), -1))
+        live = pcode >= 0
+        slot, _ok = _bucket_slots(pcode % n_dev, n_dev, D, live)
+        return [_place(x, slot, size, fill) for x, fill in out]
+
+    def stage_c(recv):
+        """Merge one shard's received partials into its groups."""
+        rcode, rcnt, rfidx = recv[:3]
+        rlanes = recv[3:3 + n_lanes]
+        mkey = torch.where(rcode >= 0, rcode, KEY_MAX)
+        perm = _sort_perm([mkey, rfidx])
+        msc, msf, msn = mkey[perm], rfidx[perm], rcnt[perm]
+        mslanes = [x[perm] for x in rlanes]
+        mvalid = msc != KEY_MAX
+        mflags = mvalid & _new_run(msc)
+        mrs = torch.cumsum(mflags.to(I32) + (~mvalid).to(I32), 0,
+                           dtype=I32).flip(0)
+        if has_last:
+            # (code, -last-row id): its run heads are the partials with
+            # the largest last-row id; the code sequence, so the run
+            # heads, are the first sort's
+            perm2 = _sort_perm([mkey, -recv[3 + n_lanes]])
+        scan = [i for i, op in enumerate(lane_ops)
+                if op not in ("first", "last")]
+        red = dict(zip(scan, _rscan_lanes(
+            mrs, [lane_ops[i] for i in scan], [mslanes[i] for i in scan])))
+        tot = [ml if op == "first" else rl[perm2] if op == "last"
+               else red[i]
+               for i, (op, ml, rl) in enumerate(zip(lane_ops, mslanes,
+                                                    rlanes))]
+        my_ng = mflags.sum()
+        tg = _compact_targets(mflags, out_cap)
+        # a group's count: a difference of the i64 prefix sums of its
+        # partials' counts (exact)
+        iota = torch.arange(int(msc.shape[0]), device=msc.device)
+        start = _place(iota, tg, out_cap, 0)
+        end = _place(iota, _compact_targets(mvalid & _run_end(msc),
+                                            out_cap), out_cap, 0)
+        cs = torch.cat([msn.new_zeros(1), torch.cumsum(msn, 0)])
+        gout = [_place(msc, tg, out_cap, -1), cs[end + 1] - cs[start],
+                _place(msf, tg, out_cap, KEY_MAX)] + \
+            [_place(x, tg, out_cap, 0.0) for x in tot]
+        return gout, torch.clamp(my_ng - out_cap, min=0).reshape(1)
+
+    def kernel(codes, *lanes):
+        sends = [stage_a(me, c, [ln[me] for ln in lanes])
+                 for me, c in enumerate(codes)]
+        recvs = [all_to_all([s[j] for s in sends])
+                 for j in range(len(sends[0]))]
+        merged = [stage_c([r[d] for r in recvs]) for d in range(n_dev)]
+        ovf = psum([o for _g, o in merged])[0]
+        gathered = [all_gather([g[j] for g, _o in merged])[0]
+                    for j in range(3 + n_lanes)]
+        acode, acnt, afidx = gathered[:3]
+        fkey = torch.where(acode >= 0, afidx, KEY_MAX)
+        perm = _sort_perm([fkey])
+        of = acode[perm]
+        ng = (of >= 0).sum().reshape(1)
+        return tuple([ng, ovf, of, acnt[perm], fkey[perm]] +
+                     [x[perm] for x in gathered[3:]])
+
+    _a2a = (3 + n_lanes + int(has_last)) * n_dev * (n_dev - 1) * D * 8
+    _ag = (3 + n_lanes) * n_dev * (n_dev - 1) * out_cap * 8
+    return _counted(kernel, lambda *a: _a2a + _ag)
+
+
+def dist_wide_groupby_auto(mesh: Mesh, rows_local: int,
+                           lane_ops=("sum",), n_codes=None):
+    """Overflow-safe wrapper: run with balanced capacity + headroom,
+    re-run with doubled merge capacity if any shard overflowed. With
+    `n_codes` known the initial merge capacity is the exact per-shard
+    ownership bound ceil(n_codes / n) — no overflow possible."""
+    if n_codes is None:
+        cap = max(2 * rows_local, 64)
+    else:
+        cap = max(min(2 * rows_local, -(-n_codes // mesh.n)), 64)
+    tried = {}
+
+    def run(codes, *lanes):
+        c = cap
+        while True:
+            if c not in tried:
+                tried[c] = dist_wide_groupby(mesh, rows_local, c,
+                                             lane_ops, n_codes)
+            out = tried[c](codes, *lanes)
+            if int(out[1][0]) == 0:
+                # (ng, codes, counts, fidx, *lane_results)
+                return (out[0],) + out[2:]
+            c *= 2
+
+    return run
+
+
+# -- distributed grouped median (raw-row shuffle) -----------------------------
+
+_MED_KPER = 16    # locally-heavy candidate slots per shard
+
+
+def dist_med_groupby(mesh: Mesh, rows_local: int, cap: int,
+                     out_cap: int, n_lanes: int):
+    """Distributed grouped MEDIAN: median is not decomposable, so rows
+    shuffle raw to the shard owning code % n — every group lands
+    complete on one shard, where a (code, value) sort + selection
+    computes it exactly (core/aggr.c med over sorted per-group rows).
+
+    SKEW: a code that is locally heavy on some shard (local run > cap/2;
+    by pigeonhole every globally heavy code is) becomes a CANDIDATE
+    whose rows never ride the exchange. Its median comes from a
+    distributed rank selection instead: a 64-round bitwise search over
+    the monotone f64 bit space, each round counting per shard the
+    candidate's values below the trial and psum-combining the counts.
+
+    fn(codes, *lanes) with per-shard i64 codes (-1 = masked) and n_lanes
+    f64 value lanes (nulls as NaN, which sorts last). Returns replicated
+    (ng, ovf_exchange, ovf_out, codes, fidx, *medians) in global
+    first-appearance order. Either overflow counter nonzero means re-run
+    with that capacity doubled (dist_med_groupby_auto)."""
+    n_dev = mesh.n
+    m = n_dev * cap
+    K = n_dev * _MED_KPER
+    theta = max(cap // 2, 1)
+
+    def candidates(codes):
+        """One shard's locally-heavy codes (at most _MED_KPER of them,
+        code order; -1 fills) and how many it had beyond that."""
+        (csort,), _ = sort_lex([torch.where(codes >= 0, codes, KEY_MAX)])
+        n = int(csort.shape[0])
+        runlen = torch.searchsorted(csort, csort, right=True) - \
+            torch.arange(n, device=csort.device)
+        heavy = (csort != KEY_MAX) & _new_run(csort) & (runlen > theta)
+        over = torch.clamp(heavy.sum() - _MED_KPER, min=0).reshape(1)
+        return _place(csort, _compact_targets(heavy, _MED_KPER),
+                      _MED_KPER, -1), over
+
+    def rank_select(cand_rows, lanes):
+        """Per lane, the K candidates' medians by the distributed
+        64-round rank search (replicated (K,) f64)."""
+        meds = []
+        for li in range(n_lanes):
+            shard = []      # per shard: the search tables below
+            es = []         # per shard: each candidate's non-null values
+            for me, (is_heavy, cand_of_row) in enumerate(cand_rows):
+                rl = lanes[li][me]
+                dv = rl.device
+                s = f64_order(rl)     # signed order = float order
+                ci = torch.where(is_heavy & ~torch.isnan(rl),
+                                 cand_of_row, K).to(I32)
+                (sci, ss), _ = sort_lex([ci, s])
+                (svals,), _ = sort_lex([s])
+                # the pair (candidate, value) packed as (candidate << 32 |
+                # value rank) keeps the (ci, s) order in one i64 word,
+                # so one searchsorted counts a candidate's values below
+                # a trial
+                packed = (sci.to(I64) << 32) | \
+                    torch.searchsorted(svals, ss)
+                kk = torch.arange(K, device=dv, dtype=I32)
+                starts = torch.searchsorted(sci, kk)
+                ends = torch.searchsorted(sci, kk, right=True)
+                # per (candidate, rank) lane: the candidate in the high
+                # word of a search key, and where its run starts
+                shard.append((packed, svals,
+                              kk.to(I64).repeat_interleave(2) << 32,
+                              starts.repeat_interleave(2)))
+                es.append((ends - starts).to(I64))
+            e = psum(es)[0]
+            dv0 = e.device
+            ranks = torch.stack([torch.clamp((e - 1) // 2, min=0), e // 2],
+                                1)
+            cur = torch.zeros((K, 2), dtype=I64, device=dv0)   # u-space
+            for bit in range(63, -1, -1):
+                b = I64_MIN if bit == 63 else (1 << bit)
+                trial = cur | b
+                t_s = (trial ^ I64_MIN).reshape(-1)   # signed order
+                cnts = []
+                for packed, svals, khi, starts in shard:
+                    rt = torch.searchsorted(svals, t_s.to(svals.device))
+                    pos = torch.searchsorted(packed, khi | rt)
+                    cnts.append(pos - starts)
+                cnt = psum(cnts)[0].reshape(K, 2)
+                cur = torch.where(cnt <= ranks, trial, cur)
+            sel = f64_from_order(cur ^ I64_MIN)
+            mv = (sel[:, 0] + sel[:, 1]) / 2.0
+            meds.append(torch.where(e == 0, float("nan"), mv))
+        return meds
+
+    def local_medians(rcode, rrid, rlanes):
+        """One shard's complete groups: codes, first-row ids, medians."""
+        dv = rcode.device
+        mkey = torch.where(rcode >= 0, rcode, KEY_MAX)
+        iota = torch.arange(m, device=dv)
+        meds = []
+        for li, rl in enumerate(rlanes):
+            (sc, sv), (sr,) = sort_lex([mkey, rl], ops=[rrid])
+            if li == 0:
+                mvalid = sc != KEY_MAX
+                mflags = mvalid & _new_run(sc)
+                tf = _compact_targets(mflags, out_cap)
+                start = _place(iota, tf, out_cap, 0)
+                end = _place(iota, _compact_targets(mvalid & _run_end(sc),
+                                                    out_cap), out_cap, 0)
+                gcode = _place(sc, tf, out_cap, -1)
+                rs = torch.cumsum(mflags.to(I32) + (~mvalid).to(I32), 0,
+                                  dtype=I32).flip(0)
+                fidx = _place(_rscan(rs, sr, "min"), tf, out_cap, KEY_MAX)
+                my_ng = mflags.sum()
+            # same key -> identical code order and boundaries
+            nn = torch.cat([iota.new_zeros(1),
+                            torch.cumsum((~torch.isnan(sv)).to(I64), 0)])
+            e = nn[end + 1] - nn[start]
+            lo_i = torch.clamp(start + torch.clamp(e - 1, min=0) // 2,
+                               0, m - 1)
+            hi_i = torch.clamp(start + e // 2, 0, m - 1)
+            mv = (sv[lo_i] + sv[hi_i]) / 2.0
+            meds.append(torch.where(e == 0, float("nan"), mv))
+        ovf = torch.clamp(my_ng - out_cap, min=0).reshape(1)
+        return gcode, fidx, meds, ovf
+
+    def kernel(codes, *lanes):
+        # ---- locally-heavy candidates, gathered and deduplicated ------
+        cl = [candidates(c) for c in codes]
+        ovf_cand = psum([o for _c, o in cl])[0]
+        cand = all_gather([c for c, _o in cl])[0]
+        (cand,), _ = sort_lex([torch.where(cand >= 0, cand, KEY_MAX)])
+        dup = torch.cat([torch.zeros(1, dtype=BOOL, device=cand.device),
+                         cand[1:] == cand[:-1]])
+        cand = torch.where(dup | (cand == KEY_MAX), KEY_MAX, cand)
+        (cand_s,), _ = sort_lex([cand])     # KEY_MAX holes at the end
+        cand_rows = []
+        for me, c in enumerate(codes):
+            cs = cand_s.to(c.device)
+            cixc = torch.clamp(torch.searchsorted(cs, c), 0, K - 1)
+            is_heavy = (cs[cixc] == c) & (c >= 0)
+            cand_rows.append((is_heavy, torch.where(is_heavy, cixc, K)))
+
+        # ---- heavy candidates: distributed rank selection -------------
+        heavy_meds = rank_select(cand_rows, lanes)
+        hf, hc = [], []
+        for me, (c, (is_heavy, cand_of_row)) in enumerate(
+                zip(codes, cand_rows)):
+            n = int(c.shape[0])
+            rid = me * n + torch.arange(n, device=c.device)
+            # integer scatters spread over copies of the K + 1 cells
+            # (groupby._cells): most rows hit the non-candidate cell
+            cells = G._cells(cand_of_row, K + 1, n)
+            hf.append(G._scatter_ext(cells, K + 1, rid, "amin")[:K])
+            hc.append(G._scatter_sum(cells, K + 1,
+                                     torch.ones_like(rid))[:K])
+        hfid = pmin(hf)[0]
+        hcnt = psum(hc)[0]
+        hvalid = (cand_s != KEY_MAX) & (hcnt > 0)
+        hcode = torch.where(hvalid, cand_s, -1)
+        hfid = torch.where(hvalid, hfid, KEY_MAX)
+
+        # ---- raw-row shuffle by code ownership (light rows) -----------
+        cols = []
+        for me, c in enumerate(codes):
+            n = int(c.shape[0])
+            rid = me * n + torch.arange(n, device=c.device)
+            cols.append([(c, -1), (rid, KEY_MAX)] +
+                        [(ln[me], float("nan")) for ln in lanes])
+        recvs, ovf_ex = _shuffle(
+            [c % n_dev for c in codes],
+            [(c >= 0) & ~h for c, (h, _co) in zip(codes, cand_rows)],
+            cols, n_dev, cap)
+        local = [local_medians(recvs[0][d], recvs[1][d],
+                               [r[d] for r in recvs[2:]])
+                 for d in range(n_dev)]
+        ovf_out = psum([x[3] for x in local])[0]
+
+        # ---- gather + global first-appearance order -------------------
+        # heavy candidate lanes are replicated, so they append ONCE
+        acode = torch.cat([all_gather([x[0] for x in local])[0], hcode])
+        afidx = torch.cat([all_gather([x[1] for x in local])[0], hfid])
+        ameds = [torch.cat([all_gather([x[2][i] for x in local])[0], hm])
+                 for i, hm in enumerate(heavy_meds)]
+        fkey = torch.where(acode >= 0, afidx, KEY_MAX)
+        perm = _sort_perm([fkey])
+        oc = acode[perm]
+        ng = (oc >= 0).sum().reshape(1)
+        return tuple([ng, psum(ovf_ex)[0] + ovf_cand, ovf_out, oc,
+                      fkey[perm]] + [x[perm] for x in ameds])
+
+    _a2a = (2 + n_lanes) * n_dev * (n_dev - 1) * cap * 8
+    _sel = n_lanes * 64 * 2 * (n_dev - 1) * K * 2 * 8   # rank psums
+    _ag = (2 + n_lanes) * n_dev * (n_dev - 1) * out_cap * 8
+    return _counted(kernel, lambda *a: _a2a + _sel + _ag)
+
+
+def dist_med_groupby_auto(mesh: Mesh, rows_local: int, n_lanes: int):
+    """Overflow-safe distributed median: doubles whichever capacity
+    (exchange buckets / output groups) overflowed and re-runs."""
+    n_dev = mesh.n
+    caps = [max(2 * rows_local // n_dev, 64),
+            max(2 * rows_local // n_dev, 64)]
+    tried = {}
+
+    def run(codes, *lanes):
+        while True:
+            key = (caps[0], caps[1])
+            if key not in tried:
+                tried[key] = dist_med_groupby(
+                    mesh, rows_local, caps[0], caps[1], n_lanes)
+            out = tried[key](codes, *lanes)
+            oe = int(out[1][0])
+            oo = int(out[2][0])
+            if oe == 0 and oo == 0:
+                # (ng, codes, fidx, *medians)
+                return (out[0],) + out[3:]
+            if oe:
+                caps[0] *= 2
+            if oo:
+                caps[1] *= 2
+
+    return run

@@ -55,6 +55,34 @@ PARTED_QUERIES = {
 }
 
 
+# grouped selects that the mesh phase adds (chip_smoke.py phase 8): the
+# median at id3's cardinality, over the table and over its copy with one
+# heavy id3 code (`t_skew`, skewed_id3)
+MESH_QUERIES = {
+    "med_id3": "(select {m: (med v3) s: (sum v2) from: t by: id3})",
+    "med_id3_skew": "(select {m: (med v3) s: (sum v2) from: t_skew "
+                    "by: id3})",
+}
+
+
+def skewed_id3(tbl, device, share=0.6, seed=60):
+    """A copy of a G1 table on `device` in which id3 code 137 holds a
+    `share` of the rows (drawn from a seeded torch.Generator); the other
+    columns are the table's own. Returns (table, heavy rows)."""
+    names, cols = tbl.v
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    i3 = NAMES.index("id3")
+    heavy = torch.rand(len(tbl), generator=gen, device=device) < share
+    id3 = torch.where(heavy, 137, cols[i3].pending().arr)
+    cols = list(cols)
+    cols[i3] = Obj(T.I64, DevPending(id3))
+    cols[i3].meta = {"dev": id3}
+    t = table(names, cols)
+    dev.put_table(t)
+    return t, int(heavy.sum())
+
+
 def g1_table(rows, device):
     """db-benchmark G1 (K=100) on `device`, with bench.py's column specs:
     id1, id2, id4, id5 in [0,100); id3, id6 in [0,100000); v1 in [1,6);

@@ -6,6 +6,12 @@ card.
 
     python -m rayforce_tpu_torch.tools.sortprof [--rows N] [--out DIR]
         [--queries q1,q7,ij,aj,wj,wj0,...] [--no-sort] [--no-queries]
+        [--mesh N]
+
+With --mesh N the grouped selects run on an N-shard mesh on the card
+(RAYFORCE_MESH=N; its shards share the card), and the queries may
+include tools.g1.MESH_QUERIES (the id3 medians, one over a copy of the
+table with a 60%-heavy id3 code).
 
 The sort is profiled at the main path's shapes: one key word alone (the
 compaction sorts' key-only route), one key word with one and with two
@@ -129,6 +135,8 @@ def main(argv=None):
                     help="skip the radix sort's own profiles")
     ap.add_argument("--no-queries", action="store_true",
                     help="skip the grouped selects")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="run the grouped selects on an N-shard mesh")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -143,7 +151,7 @@ def main(argv=None):
     from rayforce_tpu_torch.core import symbols
     from rayforce_tpu_torch.engine import device as dev, psort
     from rayforce_tpu_torch.engine import select as sel
-    from .g1 import QUERIES, g1_table
+    from .g1 import MESH_QUERIES, QUERIES, g1_table, skewed_id3
     from .jtables import JOIN_QUERIES, WJOIN_QUERIES, force_columns, \
         join_tables
     dev.set_device("cuda")
@@ -168,8 +176,14 @@ def main(argv=None):
              **WJOIN_QUERIES}
     tables = join_tables(n, "cuda") if any(
         q in joins for q in names) else {"t": g1_table(n, "cuda")}
+    if "med_id3_skew" in names:
+        tables["t_skew"] = skewed_id3(tables["t"], "cuda")[0]
     for tname, tbl in tables.items():
         rt.interp.globals[symbols.intern(tname)] = tbl
+    if args.mesh:
+        os.environ["RAYFORCE_MESH"] = str(args.mesh)
+        dev._mesh_state.update({"mesh": None, "checked": False})
+        print(f"mesh: {dev.mesh().n} shards on {dev.mesh().devices[0]}")
     for name in names:
         if name in joins:
             q = joins[name]
@@ -177,7 +191,8 @@ def main(argv=None):
             def run(q=q):
                 return force_columns(rt.eval_str(q))
         else:
-            q = QUERIES[name][0]
+            q = MESH_QUERIES[name] if name in MESH_QUERIES else \
+                QUERIES[name][0]
 
             def run(q=q):
                 return rt.eval_str(q)
@@ -192,7 +207,8 @@ def main(argv=None):
             p = sel.last_profile
             ms = p["exec_ms"] if "exec_ms" in p else \
                 p["dispatch_ms"] + p["exec+fetch_ms"]
-            print(f"   exec_ms (last run) {ms:.3f}")
+            eng = p.get("engine", "spmd" if p.get("spmd") else "dense")
+            print(f"   exec_ms (last run) {ms:.3f}, engine {eng}")
     return 0
 
 

@@ -137,3 +137,23 @@ def test_g1_table_specs():
     assert dev.column_qscale(cols["v3"]) == 1e6
     lo, hi = dev.column_range(cols["v3"])
     assert 0.0 <= lo and hi < 100.0
+
+
+def test_g1_skewed_id3():
+    """tools/g1.py skewed_id3 (the mesh phase's skewed table): id3 code
+    137 holds about the asked share of the rows, the rest of id3 and the
+    other columns are the table's own."""
+    from rayforce_tpu_torch.core.obj import to_np
+    from rayforce_tpu_torch.tools.g1 import NAMES, g1_table, skewed_id3
+    t = g1_table(50_000, "cpu")
+    s, heavy = skewed_id3(t, "cpu")
+    a = {nm: to_np(c) for nm, c in zip(NAMES, t.v[1])}
+    b = {nm: to_np(c) for nm, c in zip(NAMES, s.v[1])}
+    hot = b["id3"] == 137
+    assert heavy <= hot.sum() <= heavy + (a["id3"] == 137).sum()
+    assert 0.58 < hot.mean() < 0.62
+    np.testing.assert_array_equal(b["id3"][~hot], a["id3"][~hot])
+    for nm in NAMES:
+        if nm != "id3":
+            np.testing.assert_array_equal(b[nm], a[nm])
+    assert dev.column_range(s.v[1][NAMES.index("id3")])[1] <= 99_999

@@ -1,0 +1,417 @@
+"""The port's mesh kernels (rayforce_tpu_torch/parallel/dist.py) held
+against the JAX package's, side by side on the same seeded inputs: the
+reference kernel runs on its 8-device virtual CPU mesh
+(`rayforce_tpu.parallel.dist.make_mesh(8)`, as tests/test_dist.py's
+`mesh8` fixture), the port's on an 8-shard mesh over CPU torch, where
+every sort is the plain version of the CUDA radix sort.
+
+Counts, codes, row ids and integer lanes must be equal; f64 lanes within
+rtol 1e-12 (the port's f64 partials against numpy's sums; the
+reference's dense sums ride f32 one-hot matmuls, so against them the
+bound is its own rtol 1e-5); medians bit for bit. Each kernel also
+notes the same exchanged bytes in both packages' `dist.stats`."""
+import numpy as np
+import pytest
+import torch
+
+from rayforce_tpu.engine import groupby as RG
+from rayforce_tpu.parallel import dist as R
+from rayforce_tpu_torch.engine import psort
+from rayforce_tpu_torch.parallel import dist as D
+
+torch.set_num_threads(1)
+
+N_DEV = 8
+
+
+@pytest.fixture(scope="module")
+def meshes():
+    import jax
+    if len(jax.devices()) < N_DEV:
+        pytest.skip("the reference needs 8 virtual devices")
+    return R.make_mesh(N_DEV), D.make_mesh(N_DEV, device="cpu")
+
+
+def _shard(meshes, a):
+    """The same host array row-sharded over both meshes."""
+    rm, pm = meshes
+    return R.shard_rows(rm, a)[0], D.shard_rows(pm, a)[0]
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _stats_equal(run_ref, run_port):
+    """Run both kernels with fresh stats; their exchanged bytes and
+    kernel calls must agree. Returns both results."""
+    R.reset_stats()
+    D.reset_stats()
+    r = run_ref()
+    p = run_port()
+    assert dict(D.stats) == dict(R.stats)
+    return r, p
+
+
+def test_mesh_shards_rows_and_collectives():
+    pm = D.make_mesh(N_DEV, device="cpu")
+    assert pm.n == N_DEV and pm.axis_names == ("d",)
+    assert all(d.type == "cpu" for d in pm.devices)
+    a = np.arange(5003, dtype=np.int64)
+    shards, pad = D.shard_rows(pm, a)
+    assert pad == (-5003) % N_DEV
+    assert [int(s.shape[0]) for s in shards] == [626] * N_DEV
+    np.testing.assert_array_equal(torch.cat(shards).numpy()[:5003], a)
+    assert (torch.cat(shards).numpy()[5003:] == 0).all()
+    xs = [torch.full((3,), float(i)) for i in range(N_DEV)]
+    assert D.psum(xs)[0].tolist() == [28.0] * 3
+    assert D.pmin(xs)[5].tolist() == [0.0] * 3
+    assert D.pmax(xs)[0].tolist() == [7.0] * 3
+    blocks = [torch.arange(N_DEV * 2) + 100 * s for s in range(N_DEV)]
+    out = D.all_to_all(blocks)
+    for d in range(N_DEV):
+        assert out[d].tolist() == [100 * s + 2 * d + j for s in range(N_DEV)
+                                   for j in range(2)]
+    assert D.all_gather([torch.tensor([s]) for s in range(N_DEV)])[3] \
+        .tolist() == list(range(N_DEV))
+    assert D.axis_index(pm) == list(range(N_DEV))
+
+
+def test_dist_groupby_sum(meshes):
+    rm, pm = meshes
+    rng = np.random.default_rng(0)
+    n_codes = 37
+    n = N_DEV * 512
+    codes = rng.integers(0, n_codes, n).astype(np.int32)
+    vals = rng.uniform(0, 10, n).astype(np.float32)
+    rc, pc = _shard(meshes, codes)
+    rv, pv = _shard(meshes, vals)
+    r, p = _stats_equal(lambda: R.dist_groupby_sum(rm, n_codes)(rc, rv),
+                        lambda: D.dist_groupby_sum(pm, n_codes)(pc, pv))
+    want = np.zeros(n_codes + 1)
+    np.add.at(want, codes, vals.astype(np.float64))
+    np.testing.assert_allclose(_np(p), want, rtol=1e-12)
+    np.testing.assert_allclose(_np(p), np.asarray(r), rtol=1e-5)
+
+
+def test_dist_groupby_count_first(meshes):
+    rm, pm = meshes
+    rng = np.random.default_rng(5)
+    n_codes = 29
+    per = 700
+    codes = rng.integers(0, n_codes + 1, N_DEV * per).astype(np.int32)
+    codes[codes == 17] = 3          # an empty code
+    rc, pc = _shard(meshes, codes)
+    r, p = _stats_equal(
+        lambda: R.dist_groupby_count_first(rm, n_codes, per)(rc),
+        lambda: D.dist_groupby_count_first(pm, n_codes, per)(pc))
+    np.testing.assert_array_equal(_np(p[0]), np.asarray(r[0]))
+    np.testing.assert_array_equal(_np(p[1]), np.asarray(r[1]))
+    assert int(_np(p[1])[17]) == RG.KEY_MAX
+
+
+def test_dist_select_small(meshes):
+    rm, pm = meshes
+    rng = np.random.default_rng(1)
+    n_codes = 20
+    per = 1024
+    n = N_DEV * per
+    codes = rng.integers(0, n_codes, n).astype(np.int32)
+    mask = rng.random(n) > 0.3
+    codes_m = np.where(mask, codes, n_codes).astype(np.int32)
+    vals = rng.uniform(-5, 5, n)
+    ints = rng.integers(0, 200, n).astype(np.int64)
+    ins = [_shard(meshes, a) for a in (
+        codes_m, ints.astype(np.float32), vals,
+        np.where(mask, ints, RG.KEY_MAX), np.where(mask, ints, RG.I64_MIN))]
+    args = dict(n_sums=1, n_mins=1, n_maxs=1, n_int_tasks=1)
+    r, p = _stats_equal(
+        lambda: R.dist_select_small(rm, n_codes, per, **args)(
+            *[x[0] for x in ins]),
+        lambda: D.dist_select_small(pm, n_codes, per, **args)(
+            *[x[1] for x in ins]))
+    assert set(p) == set(r)
+    for k in r:
+        want, got = np.asarray(r[k]), _np(p[k])
+        if k == "sum0":
+            np.testing.assert_allclose(got, want, rtol=1e-12)
+        else:
+            np.testing.assert_array_equal(got, want.astype(got.dtype), k)
+    ref_cnt = np.bincount(codes[mask], minlength=n_codes)
+    np.testing.assert_array_equal(_np(p["counts"]), ref_cnt)
+
+
+def test_dist_filter_group_sum(meshes):
+    rm, pm = meshes
+    rng = np.random.default_rng(8)
+    n_codes = 45
+    n = N_DEV * 600
+    codes = rng.integers(0, n_codes, n).astype(np.int32)
+    vals = rng.uniform(-3, 9, n)
+    mask = rng.random(n) < 0.6
+    ins = [_shard(meshes, a) for a in (codes, vals, mask)]
+    r, p = _stats_equal(
+        lambda: R.dist_filter_group_sum(rm, n_codes)(*[x[0] for x in ins]),
+        lambda: D.dist_filter_group_sum(pm, n_codes)(*[x[1] for x in ins]))
+    want = np.zeros(n_codes + 1)
+    c = np.where(mask, codes, n_codes)
+    np.add.at(want, c, vals)
+    np.testing.assert_allclose(_np(p[0]), want, rtol=1e-12)
+    np.testing.assert_allclose(_np(p[0]), np.asarray(r[0]), rtol=1e-5)
+    np.testing.assert_array_equal(_np(p[1]), np.bincount(
+        c, minlength=n_codes + 1).astype(np.float64))
+    np.testing.assert_array_equal(_np(p[1]), np.asarray(r[1]))
+
+
+@pytest.mark.parametrize("capacity", [512, 8])
+def test_dist_shuffle_routing(meshes, capacity):
+    """Routing equals the reference's slot for slot; a tight capacity
+    reports its overflow (never drops silently) and the auto wrapper's
+    doubling retry routes every row."""
+    rm, pm = meshes
+    rng = np.random.default_rng(2)
+    n = N_DEV * 256
+    keys = rng.integers(0, 5000, n).astype(np.int64)
+    vals = rng.integers(0, 100, n).astype(np.int64)
+    rk, pk = _shard(meshes, keys)
+    rv, pv = _shard(meshes, vals)
+    r, p = _stats_equal(lambda: R.dist_shuffle(rm, capacity)(rk, rv),
+                        lambda: D.dist_shuffle(pm, capacity)(pk, pv))
+    for i in range(3):
+        np.testing.assert_array_equal(torch.cat(p[i]).numpy(),
+                                      np.asarray(r[i]))
+    ovf = int(p[3][0])
+    assert ovf == int(np.asarray(r[3])[0])
+    valid = torch.stack(p[2])
+    for d in range(N_DEV):
+        assert (p[0][d][p[2][d]] % N_DEV == d).all()
+    assert int(valid.sum()) + ovf == n
+    assert (ovf > 0) == (capacity == 8)
+    rk3, _rv3, v3 = D.dist_shuffle_auto(pm, capacity)(pk, pv)
+    assert int(torch.stack(v3).sum()) == n
+    got = torch.cat(rk3)[torch.cat(v3)].numpy()
+    np.testing.assert_array_equal(np.sort(got), np.sort(keys))
+
+
+def _first_appearance(codes):
+    seen = {}
+    for i, c in enumerate(codes):
+        if c >= 0 and c not in seen:
+            seen[c] = i
+    return sorted(seen, key=lambda c: seen[c])
+
+
+def _wide(meshes, codes, lanes, lane_ops, per, n_codes=None):
+    rm, pm = meshes
+    rc, pc = _shard(meshes, codes)
+    ls = [_shard(meshes, x) for x in lanes]
+    r, p = _stats_equal(
+        lambda: R.dist_wide_groupby_auto(rm, per, lane_ops, n_codes)(
+            rc, *[x[0] for x in ls]),
+        lambda: D.dist_wide_groupby_auto(pm, per, lane_ops, n_codes)(
+            pc, *[x[1] for x in ls]))
+    ng = int(np.asarray(r[0])[0])
+    assert int(p[0][0]) == ng
+    # codes, counts and first-row ids exactly; f64 lanes within 1e-12
+    for i, (a, b) in enumerate(zip(r[1:], p[1:])):
+        want, got = np.asarray(a)[:ng], _np(b)[:ng]
+        if i < 3:
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+    assert _np(p[1])[:ng].tolist() == _first_appearance(codes)
+    return ng, [_np(x)[:ng] for x in p[1:]]
+
+
+@pytest.mark.parametrize("n_codes", [None, 3000])
+def test_dist_wide_groupby(meshes, n_codes):
+    rng = np.random.default_rng(3)
+    per = 1024
+    n = N_DEV * per
+    codes = rng.integers(0, 3000, n).astype(np.int64)
+    codes[rng.random(n) < 0.1] = -1        # masked (filtered) rows
+    vals = rng.uniform(0, 10, n)
+    _ng, (code, cnt, _fidx, s) = _wide(meshes, codes, [vals], ("sum",),
+                                       per, n_codes)
+    for i, c in enumerate(code):
+        sel = codes == c
+        assert cnt[i] == sel.sum()
+        assert abs(s[i] - vals[sel].sum()) <= 1e-12 * vals[sel].sum()
+
+
+def test_dist_wide_groupby_skewed(meshes):
+    """One heavy key owning 60% of the rows: at most one partial per
+    shard rides the exchange, and the result is exact."""
+    rng = np.random.default_rng(4)
+    per = 512
+    n = N_DEV * per
+    codes = rng.integers(0, 500, n).astype(np.int64)
+    codes[rng.random(n) < 0.6] = 137
+    vals = rng.uniform(0, 1, n)
+    _ng, (code, cnt, _f, s) = _wide(meshes, codes, [vals], ("sum",), per)
+    hh = np.nonzero(code == 137)[0]
+    assert len(hh) == 1
+    assert cnt[hh[0]] == int((codes == 137).sum())
+    assert abs(s[hh[0]] - vals[codes == 137].sum()) < 1e-9
+
+
+def test_dist_wide_groupby_lanes(meshes):
+    """Every lane kind in one kernel: sum, min, max, first, last."""
+    rng = np.random.default_rng(7)
+    per = 512
+    n = N_DEV * per
+    codes = rng.integers(0, 900, n).astype(np.int64)
+    codes[rng.random(n) < 0.15] = -1
+    va = rng.uniform(-50, 50, n)
+    vb = rng.uniform(0, 1000, n)
+    ops = ("sum", "min", "max", "first", "last")
+    _ng, (code, _c, _f, s, mn, mx, fv, lv) = _wide(
+        meshes, codes, [va, va, vb, vb, vb], ops, per)
+    for i, c in enumerate(code):
+        sel = np.nonzero(codes == c)[0]
+        assert abs(s[i] - va[sel].sum()) < 1e-8
+        assert mn[i] == va[sel].min()
+        assert mx[i] == vb[sel].max()
+        assert fv[i] == vb[sel[0]]
+        assert lv[i] == vb[sel[-1]]
+
+
+def test_dist_wide_groupby_overflow_retry(meshes):
+    """A merge capacity below the groups one shard owns overflows; the
+    auto wrapper reruns doubled and the answer is the reference's."""
+    rm, pm = meshes
+    rng = np.random.default_rng(9)
+    per = 256
+    codes = (rng.integers(0, 300, N_DEV * per) * N_DEV).astype(np.int64)
+    vals = rng.uniform(0, 1, N_DEV * per)
+    rc, pc = _shard(meshes, codes)
+    rv, pv = _shard(meshes, vals)
+    out = D.dist_wide_groupby(pm, per, 64)(pc, pv)
+    assert int(out[1][0]) > 0
+    assert int(out[1][0]) == int(np.asarray(
+        R.dist_wide_groupby(rm, per, 64)(rc, rv)[1])[0])
+    _wide(meshes, codes, [vals], ("sum",), per)
+
+
+def _med(meshes, codes, lanes, per, cap=None):
+    """Both packages' median kernels; medians bit for bit. With `cap`,
+    the kernel at that capacity (its overflow lanes must be 0);
+    otherwise the auto wrapper."""
+    rm, pm = meshes
+    rc, pc = _shard(meshes, codes)
+    ls = [_shard(meshes, x) for x in lanes]
+    if cap is None:
+        fr = R.dist_med_groupby_auto(rm, per, len(lanes))
+        fp = D.dist_med_groupby_auto(pm, per, len(lanes))
+    else:
+        fr = R.dist_med_groupby(rm, per, cap, cap, len(lanes))
+        fp = D.dist_med_groupby(pm, per, cap, cap, len(lanes))
+    r, p = _stats_equal(lambda: fr(rc, *[x[0] for x in ls]),
+                        lambda: fp(pc, *[x[1] for x in ls]))
+    if cap is not None:
+        assert int(p[1][0]) == 0 and int(p[2][0]) == 0
+        r, p = (r[0],) + tuple(r[3:]), (p[0],) + tuple(p[3:])
+    ng = int(np.asarray(r[0])[0])
+    assert int(p[0][0]) == ng
+    for a, b in zip(r[1:], p[1:]):
+        want, got = np.asarray(a)[:ng], _np(b)[:ng]
+        np.testing.assert_array_equal(got.view(np.int64),
+                                      want.view(np.int64))
+    code = _np(p[1])[:ng]
+    assert code.tolist() == _first_appearance(codes)
+    for j, vals in enumerate(lanes):
+        meds = _np(p[3 + j])[:ng]
+        for i, c in enumerate(code):
+            v = np.sort(vals[codes == c])
+            v = v[~np.isnan(v)]
+            if len(v) == 0:
+                assert np.isnan(meds[i])
+            else:
+                e = len(v)
+                assert meds[i] == (v[(e - 1) // 2] + v[e // 2]) / 2.0
+    return code
+
+
+def test_dist_med_groupby(meshes):
+    """NaN nulls skipped; more groups land on a shard than the initial
+    output capacity holds, so the auto wrapper's doubling retry runs."""
+    rng = np.random.default_rng(21)
+    per = 512
+    n = N_DEV * per
+    codes = rng.integers(0, 3000, n).astype(np.int64)
+    codes[rng.random(n) < 0.1] = -1
+    va = rng.uniform(-100, 100, n)
+    va[rng.random(n) < 0.2] = np.nan
+    vb = rng.uniform(0, 50, n)
+    D.reset_stats()
+    _med(meshes, codes, [va, vb], per)
+    assert D.stats["kernel_calls"] > 1          # retried
+
+
+@pytest.mark.parametrize("auto", [False, True])
+def test_dist_med_groupby_skewed(meshes, auto):
+    """~99% of the rows on two heavy keys: their medians come from the
+    distributed rank search (the candidate path), so the kernel succeeds
+    at the initial capacity (auto: the wrapper runs it once); still
+    exact, nulls included."""
+    rng = np.random.default_rng(33)
+    per = 512
+    n = N_DEV * per
+    codes = rng.integers(0, 400, n).astype(np.int64)
+    hot = rng.random(n) < 0.99
+    codes[hot] = np.where(rng.random(hot.sum()) < 0.7, 137, 22)
+    codes[rng.random(n) < 0.02] = -1
+    va = rng.uniform(-1000, 1000, n)
+    va[rng.random(n) < 0.15] = np.nan
+    vb = rng.standard_normal(n) * 1e6
+    vb[:40] = -0.0
+    cap = max(2 * per // N_DEV, 64)
+    code = _med(meshes, codes, [va, vb], per, cap=None if auto else cap)
+    assert {137, 22} <= set(code.tolist())
+    if auto:
+        assert D.stats["kernel_calls"] == 1
+
+
+def test_med_rank_search_extremes(meshes):
+    """The rank search over the whole f64 order: infinities, negative
+    and positive values, a candidate with one value, one with only
+    nulls."""
+    rng = np.random.default_rng(44)
+    per = 256
+    n = N_DEV * per
+    codes = np.full(n, 5, np.int64)
+    codes[::3] = 9
+    codes[7] = 1                                # a light group
+    v = rng.standard_normal(n) * 1e300
+    v[::11] = np.inf
+    v[::13] = -np.inf
+    v[codes == 9] = np.nan                      # all null
+    _med(meshes, codes, [v], per, cap=max(2 * per // N_DEV, 64))
+
+
+def test_dist_kernels_sort_through_the_psort_entry(meshes, monkeypatch):
+    """Every sort of the mesh kernels goes through psort.sort_i32 (the
+    CUDA radix sort on the card); none calls torch.sort itself."""
+    calls = []
+    real = psort.sort_i32
+
+    def counting(ops, n_keys=1, perm=False):
+        calls.append((len(ops), n_keys))
+        return real(ops, n_keys, perm)
+
+    monkeypatch.setattr(psort, "sort_i32", counting)
+    rng = np.random.default_rng(6)
+    per = 128
+    codes = rng.integers(0, 50, N_DEV * per).astype(np.int64)
+    vals = rng.uniform(0, 1, N_DEV * per)
+    _rm, pm = meshes
+    pc = D.shard_rows(pm, codes)[0]
+    pv = D.shard_rows(pm, vals)[0]
+    D.dist_wide_groupby_auto(pm, per, ("sum", "last"))(pc, pv, pv)
+    # stage A per shard, stage C's two merge sorts per shard, stage D
+    assert len(calls) == 3 * N_DEV + 1
+    calls.clear()
+    D.dist_med_groupby_auto(pm, per, 1)(pc, pv)
+    assert calls
+    import inspect
+    assert "torch.sort" not in inspect.getsource(D)

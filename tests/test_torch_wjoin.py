@@ -34,7 +34,7 @@ from rayforce_tpu_torch.core import symbols, types as T
 from rayforce_tpu_torch.core.errors import RayError, err_msg
 from rayforce_tpu_torch.core.fmt import format_top as fmt
 from rayforce_tpu_torch.core.obj import DevPending, Obj, list_, table, \
-    vec_sym
+    to_np, vec_sym
 from rayforce_tpu_torch.engine import device as dev
 from rayforce_tpu_torch.engine import psort
 from rayforce_tpu_torch.engine import wjoin as ew
@@ -840,3 +840,68 @@ def test_bench_window_joins(bench_tables, name):
                 atol=((pn - pn.mean()) ** 2).sum() * 2.0 ** -40)
         else:
             assert g.tobytes() == w.tobytes(), nm
+
+
+# -- exact integer window sums ------------------------------------------------
+
+def test_integer_window_sum_is_exact_past_2_53():
+    """An i64 window sum whose right column's prefix passes 2^53: the
+    port's device path takes it as a difference of i64 prefix sums, so
+    it equals the port's host path row for row (f64 prefix sums lost up
+    to 4 in the last digits here). The reference device keeps its f64
+    prefix sums (ROADMAP queue 3)."""
+    rng = np.random.default_rng(53)
+    nr, nl = 20_000, 20_000
+    v = rng.integers(1 << 40, 1 << 41, nr).astype(np.int64)
+    _rrt, prt = _runtimes({
+        "tr": {"s": (np.zeros(nl, np.int64), "I64"),
+               "ts": (np.arange(nl, dtype=np.int64), "I64")},
+        "qt": {"s": (np.zeros(nr, np.int64), "I64"),
+               "ts": (np.arange(nr, dtype=np.int64), "I64"),
+               "v": (v, "I64")}})
+    q = "(window-join1 [s ts] (map-left + [-2 2] (at tr 'ts)) tr qt " \
+        "{w: (sum v)})"
+    ew.last_profile.clear()
+    got = prt.eval_str(q)
+    assert ew.last_profile.get("engine") == "device-wjoin"
+    dev.set_enabled(False)
+    try:
+        want = prt.eval_str(q)
+    finally:
+        dev.set_enabled(True)
+    assert fmt(got) == fmt(want)
+    col = symbols.intern("w")
+    gv = to_np(got.v[1][list(to_np(got.v[0])).index(col)])
+    wv = to_np(want.v[1][list(to_np(want.v[0])).index(col)])
+    np.testing.assert_array_equal(gv, wv)
+    lo = np.clip(np.arange(nl) - 2, 0, None)
+    hi = np.clip(np.arange(nl) + 2, None, nr - 1)
+    cs = np.concatenate([[0], np.cumsum(v)])
+    np.testing.assert_array_equal(gv, cs[hi + 1] - cs[lo])
+
+
+@pytest.mark.parametrize("lo_bits", [40, 61])
+def test_k_sum_avg_integer_sum_wraps_like_numpy(lo_bits):
+    """`_k_sum_avg` on an i64 column against a numpy i64 window sum:
+    exact past 2^53, wrapping past 2^63 (lo_bits 61: three-row windows
+    of values in [2^61, 2^62) overflow), with null rows propagating."""
+    rng = np.random.default_rng(lo_bits)
+    n = 20_000
+    sv = rng.integers(1 << lo_bits, 1 << (lo_bits + 1), n).astype(np.int64)
+    sv[rng.integers(0, n, 30)] = T.NULL_I64
+    li = np.clip(np.arange(n - 3) - 1, 0, None).astype(np.int64)
+    ri = (np.arange(n - 3) + 1).astype(np.int64)
+    ok = np.ones(n - 3, bool)
+    ok[::97] = False
+    got = _np(ew._k_sum_avg(*_port_args(sv, li, ri, ok), T.I64, False))
+    nulls = sv == T.NULL_I64
+    with np.errstate(over="ignore"):
+        cs = np.concatenate([[0], np.cumsum(np.where(nulls, 0, sv))])
+        want = cs[ri + 1] - cs[li]
+    cn = np.concatenate([[0], np.cumsum(nulls)])
+    want = np.where((cn[ri + 1] - cn[li] > 0) | ~ok, T.NULL_I64, want)
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+    if lo_bits == 61:
+        wrapped = ok & (cn[ri + 1] - cn[li] == 0)
+        assert (want[wrapped] < (1 << 61)).any()
