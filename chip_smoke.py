@@ -88,8 +88,9 @@ Phases, each reported on its own line:
              rtol 1e-9). One [parted_ms] line per query and mode: the
              warm median of 3 wall runs;
 8. mesh      the G1 table of phase 4 (same seed, 1e7 rows) row-sharded
-             over an 8-shard mesh on this one card (RAYFORCE_MESH=8,
-             engine/device.py `mesh`; parallel/dist.py), and every
+             over an 8-shard mesh (RAYFORCE_MESH=8, engine/device.py
+             `mesh`; parallel/dist.py: the shards spread over the
+             visible cards, so on one card all 8 share it), and every
              tools/g1.py QUERIES select plus two medians at id3's
              cardinality (tools/g1.py MESH_QUERIES: one over the
              table, one over a copy made on the card from a seed in
@@ -106,15 +107,36 @@ Phases, each reported on its own line:
              mesh run bit for bit. One [mesh_ms] line per query: the
              warm median of 3 exec_ms, the shards, the engine, the
              exchanged bytes and kernel calls of the dist.stats model,
-             the sort launches and the peak device memory. The 8
-             shards share one card and exchange through device-local
-             copies: these are not a multi-card mesh's times;
-9. entry     the flagship step (rayforce_tpu_torch/entry.py) on the card
+             the sort launches, the peak device memory of the engine's
+             card and the cards the shards sit on. On one card the 8
+             shards exchange through device-local copies: these are not
+             a multi-card mesh's times;
+9. mesh     bench.py's join tables of phase 5 made again from the same
+   joins     seeds, with `t_skew` (tools/g1.py skewed_id3: one id3 code
+             on 60% of the rows), and the joins, table sorts and window
+             joins of tools/jtables.py MESH_JOIN_QUERIES over the
+             8-shard mesh: ij and lj (dist-bcast-probe), the same with
+             bcast_max = 0 and ij over t_skew (dist-eq; its heavy-key
+             route), aj (dist-asof), xasc and xdesc (dist-sort), wj and
+             wj0 (dist-wjoin). Each runs first with the mesh off (the
+             single-device card answer, held against the host path in
+             phases 5 and 6), then on the mesh: it must run its engine,
+             launch the CUDA sort, note the reference's exchanged bytes
+             (a retry adds its own call's), equal the single-device
+             answer (match ids, orders and every column exactly; wj0's
+             f64 sum, avg and dev within phase 6's tolerance) and the
+             next mesh run bit for bit. One [mesh_join_ms] line per
+             query: the warm median of 3 wall runs with every lazy
+             column forced and the card synchronised, the single-device
+             median, the engine, exchanged bytes and kernel calls, the
+             sort launches and the peak device memory;
+10. entry    the flagship step (rayforce_tpu_torch/entry.py) on the card
              against the same step on the CPU;
-10. report   one JSON line with every kernel's numbers (the radix sort's
+11. report   one JSON line with every kernel's numbers (the radix sort's
              launches count the main path's, the joins', the window
-             joins', the parted selects' and the mesh selects' runs),
-             then the result line {"ok": true, "device": {...}}.
+             joins', the parted selects', the mesh selects' and the mesh
+             joins' runs), then the result line {"ok": true, "device":
+             {...}}.
 
 Any failure raises and exits non-zero before the result line. Without a
 CUDA device, or without the rest of the repository beside it, it exits
@@ -564,8 +586,8 @@ def _mesh_engine(prof):
 
 
 def mesh_path(rows, device, single):
-    """Run every G1 query and the two id3 medians over an 8-shard mesh on
-    the card (every shard on the engine's card), each held against its
+    """Run every G1 query and the two id3 medians over an 8-shard mesh
+    (the shards spread over the visible cards), each held against its
     single-device card result (`single`: phase 4's host copies, held
     against the host path there; the two medians' are taken and held
     against the host path here) and a second mesh run. Returns (launches
@@ -663,7 +685,7 @@ def mesh_path(rows, device, single):
                   kernel_calls=stats[name]["kernel_calls"],
                   launches=per_query[name], peak_mb=round(peak[name], 1),
                   equals_single_device=True, bit_identical=True,
-                  note="8_shards_share_one_card_device_local_exchanges")
+                  cards=len(set(m.devices)))
         return launches, per_query
     finally:
         os.environ.pop("RAYFORCE_MESH", None)
@@ -869,15 +891,35 @@ def _wj_tolerance(kind, x):
     return float(np.abs(x).sum()) * 2.0 ** -40
 
 
+def f64_lane_err(name, cname, a, b, spec, tables, against):
+    """A window join's f64 sum, avg or dev lane (numpy) held to another
+    answer: the same nulls, and within `_wj_tolerance`. spec: the lane's
+    WJ_F64_LANES entry. Returns the max abs error (on dev^2 for dev)."""
+    import numpy as np
+    from rayforce_tpu_torch.core.obj import col_by_name, to_np
+    kind, tname, rcol = spec
+    if a.dtype != b.dtype or a.shape != b.shape or \
+            not np.array_equal(np.isnan(a), np.isnan(b)):
+        raise AssertionError(f"{name}: lane {cname} differs from {against} "
+                             "in its nulls")
+    ok = ~np.isnan(a)
+    err = float(np.abs(a[ok] ** 2 - b[ok] ** 2).max()) if kind == "dev" \
+        else float(np.abs(a[ok] - b[ok]).max())
+    tol = _wj_tolerance(kind, to_np(col_by_name(tables[tname], rcol)))
+    if err > tol:
+        raise AssertionError(f"{name}: lane {cname} differs from {against} "
+                             f"by {err} > {tol}")
+    return err
+
+
 def wjoin_path(rt, tables):
     """Drive the window joins (tools/jtables.py WJOIN_QUERIES) through the
     port's Runtime on bench.py's join tables and hold each against the
     host path and a second card run. Returns (launches of the run,
     launches per query, the sort calls of each query)."""
-    import numpy as np
     import torch
     from rayforce_tpu_torch.core import symbols
-    from rayforce_tpu_torch.core.obj import col_by_name, to_np
+    from rayforce_tpu_torch.core.obj import to_np
     from rayforce_tpu_torch.engine import device as dev
     from rayforce_tpu_torch.engine import psort
     from rayforce_tpu_torch.engine import wjoin as ew
@@ -941,23 +983,8 @@ def wjoin_path(rt, tables):
         for cname, (g,), w in zip(dev_names, lanes, want_cols):
             a = g.cpu().numpy()
             if cname in f64:
-                kind, tname, rcol = f64[cname]
-                tol = _wj_tolerance(kind, to_np(col_by_name(tables[tname],
-                                                            rcol)))
-                if a.dtype != w.dtype or a.shape != w.shape or \
-                        not np.array_equal(np.isnan(a), np.isnan(w)):
-                    raise AssertionError(f"{name}: lane {cname} differs "
-                                         "from the host path in its nulls")
-                ok = ~np.isnan(a)
-                if kind == "dev":
-                    err = float(np.abs(a[ok] ** 2 - w[ok] ** 2).max())
-                else:
-                    err = float(np.abs(a[ok] - w[ok]).max())
-                errs[cname] = err
-                if err > tol:
-                    raise AssertionError(f"{name}: lane {cname} differs "
-                                         f"from the host path by {err} > "
-                                         f"{tol}")
+                errs[cname] = f64_lane_err(name, cname, a, w, f64[cname],
+                                           tables, "the host path")
             elif a.dtype != w.dtype or a.shape != w.shape or \
                     a.tobytes() != w.tobytes():
                 raise AssertionError(f"{name}: lane {cname} differs from "
@@ -987,6 +1014,180 @@ def wjoin_path(rt, tables):
             r["base_mb"], r["peak_mb"] = round(base_mb, 1), round(peak_mb, 1)
         phase("join_ms", **r)
     return launches, per_query, calls
+
+
+# the exchanged bytes of each mesh join with no capacity retry, from the
+# reference's formulas (parallel/dist.py, engine/wjoin.py) at 1e7 rows
+MESH_JOIN_BYTES = {"ij": 56_000_000, "lj": 56_000_000,
+                   "ij_eq": 465_729_376, "lj_eq": 465_729_376,
+                   "ij_eq_skew": 465_729_376, "aj": 2_560_000_000,
+                   "xasc": 1_190_086_464, "xdesc": 1_050_057_792,
+                   "wj": 1_470_000_000, "wj0": 2_590_000_000}
+
+
+def mesh_join_path(rows, device):
+    """Drive the joins, table sorts and window joins (tools/jtables.py
+    MESH_JOIN_QUERIES) over an 8-shard mesh on the card, each held
+    against the same query with the mesh off (the single-device card
+    answer, which phases 5 and 6 hold against the host path) and a
+    second mesh run. Returns (launches of the checked mesh runs, the
+    launches per query)."""
+    import torch
+    from rayforce_tpu_torch import Runtime
+    from rayforce_tpu_torch.core import symbols
+    from rayforce_tpu_torch.core.obj import col_by_name, to_np
+    from rayforce_tpu_torch.engine import device as dev
+    from rayforce_tpu_torch.engine import join as ej
+    from rayforce_tpu_torch.engine import psort
+    from rayforce_tpu_torch.engine import select as sel
+    from rayforce_tpu_torch.engine import sort as es
+    from rayforce_tpu_torch.engine import wjoin as ew
+    from rayforce_tpu_torch.parallel import dist
+    from rayforce_tpu_torch.tools.g1 import skewed_id3
+    from rayforce_tpu_torch.tools.jtables import MESH_JOIN_QUERIES, \
+        force_columns, join_tables
+
+    def no_fallback(e):
+        raise AssertionError(f"device path fell back to the host: {e!r}")
+    sel.warn_fallback = no_fallback
+
+    t0 = time.perf_counter()
+    rt = Runtime()
+    tables = join_tables(rows, device)
+    tables["t_skew"], heavy = skewed_id3(tables["t"], device)
+    for name, tbl in tables.items():
+        rt.interp.globals[symbols.intern(name)] = tbl
+    phase("mesh_join_tables", seconds=round(time.perf_counter() - t0, 3),
+          heavy_rows=heavy)
+
+    def set_mesh(n):
+        if n:
+            os.environ["RAYFORCE_MESH"] = str(n)
+        else:
+            os.environ.pop("RAYFORCE_MESH", None)
+        dev._mesh_state.update({"mesh": None, "checked": False})
+        m = dev.mesh()
+        if (m.n if m is not None else 0) != n:
+            raise AssertionError(f"no {n}-shard mesh: {m}")
+        return m
+
+    def run(q):
+        out = rt.eval_str(q)
+        lanes = force_columns(out)
+        torch.cuda.synchronize()
+        return out, lanes
+
+    def ids(q):
+        """The query's match ids or row order, or None (window joins)."""
+        if q.startswith("(x"):
+            head, tbl, *keys = q[1:-1].translate(
+                str.maketrans("[]'", "   ")).split()
+            return es.table_order_device(
+                [col_by_name(tables[tbl], k) for k in keys],
+                head == "xdesc")
+        if q.startswith("(window"):
+            return None
+        head, keys, left, right = _join_parts(q)
+        lk = [col_by_name(tables[left], k) for k in keys]
+        rk = [col_by_name(tables[right], k) for k in keys]
+        if head == "asof-join":
+            return ej.match_ids_device(lk[:-1], rk[:-1], ltime=lk[-1],
+                                       rtime=rk[-1], mode="asof")
+        return ej.match_ids_device(lk, rk)
+
+    def engine(q):
+        prof = es.last_profile if q.startswith("(x") else \
+            ew.last_profile if q.startswith("(window") else ej.last_profile
+        return prof.get("engine")
+
+    launches, per_query = 0, {}
+    saved_bmax = dev._cfg["bcast_max"]
+    try:
+        for name, (q, want_engine, bmax) in MESH_JOIN_QUERIES.items():
+            dev._cfg["bcast_max"] = saved_bmax if bmax is None else bmax
+            set_mesh(0)
+            _out, single = run(q)
+            single_ids = ids(q)
+            one_runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                del _out
+                _out, _lanes = run(q)
+                one_runs.append((time.perf_counter() - t0) * 1e3)
+            del _out, _lanes
+            cards = len(set(set_mesh(MESH_SHARDS).devices))
+            for mod in (ej, es, ew):
+                mod.last_profile.clear()
+            dist.reset_stats()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            psort.LAUNCHES["radix_sort"] = 0
+            out, lanes = run(q)
+            per_query[name] = psort.LAUNCHES["radix_sort"]
+            launches += per_query[name]
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+            stats = dict(dist.stats)
+            got = engine(q)
+            if got != want_engine:
+                raise AssertionError(f"{name}: mesh engine {got}, not "
+                                     f"{want_engine}")
+            if per_query[name] <= 0:
+                raise AssertionError(f"{name}: the CUDA sort never launched")
+            if stats["kernel_calls"] <= 0 or (
+                    stats["kernel_calls"] == 1 and
+                    stats["exchanged_bytes"] != MESH_JOIN_BYTES[name]):
+                raise AssertionError(f"{name}: exchange {stats}, not "
+                                     f"{MESH_JOIN_BYTES[name]} bytes")
+            # against the single-device card answer
+            if single_ids is not None and \
+                    not torch.equal(ids(q), single_ids):
+                raise AssertionError(f"{name}: match ids or order differ "
+                                     "from one device")
+            names = [symbols.name_of(int(x)) for x in to_np(out.v[0])]
+            f64 = WJ_F64_LANES.get(name, {})
+            errs = {}
+            for cname, g, w in zip(names, lanes, single):
+                if cname in f64:
+                    errs[cname] = f64_lane_err(
+                        name, cname, g[0].cpu().numpy(), w[0].cpu().numpy(),
+                        f64[cname], tables, "one device")
+                    continue
+                for a, b in zip(g, w):
+                    if a.dtype != b.dtype or a.shape != b.shape or \
+                            not torch.equal(a.view(torch.uint8),
+                                            b.view(torch.uint8)):
+                        raise AssertionError(f"{name}: column {cname} "
+                                             "differs from one device")
+            del single, single_ids
+            runs = []
+            for i in range(4):
+                t0 = time.perf_counter()
+                _out, again = run(q)
+                ms = (time.perf_counter() - t0) * 1e3
+                if i == 0:
+                    for g, h in zip(lanes, again):
+                        for a, b in zip(g, h):
+                            if not torch.equal(a.view(torch.uint8),
+                                               b.view(torch.uint8)):
+                                raise AssertionError(f"{name}: mesh runs "
+                                                     "differ")
+                else:
+                    runs.append(ms)
+                del _out, again
+            phase("mesh_join_ms", query=name, engine=got, shards=MESH_SHARDS,
+                  rows=len(out), median_ms=statistics.median(runs),
+                  runs=runs, one_device_ms=statistics.median(one_runs),
+                  exchanged_bytes=stats["exchanged_bytes"],
+                  kernel_calls=stats["kernel_calls"],
+                  launches=per_query[name], peak_mb=round(peak, 1),
+                  max_abs_err=json.dumps(errs, separators=(",", ":")),
+                  equals_single_device=True, bit_identical=True,
+                  cards=cards)
+            del out, lanes
+        return launches, per_query
+    finally:
+        dev._cfg["bcast_max"] = saved_bmax
+        set_mesh(0)
 
 
 PARTS = 10
@@ -1289,11 +1490,17 @@ def main():
     del single
     torch.cuda.empty_cache()
 
-    # 9. the flagship step
+    # 9. the joins, table sorts and window joins over the 8-shard mesh
+    mj_launches, mj_per_query = mesh_join_path(ROWS, "cuda")
+    phase("mesh_join_path", launches=mj_launches, shards=MESH_SHARDS,
+          per_query=json.dumps(mj_per_query, separators=(",", ":")))
+    torch.cuda.empty_cache()
+
+    # 10. the flagship step
     lanes = check_entry(torch)
     phase("entry", lanes=lanes, card_equals_cpu=True)
 
-    # 10. report
+    # 11. report
     main = next(r for r in times if r["shape"] == "sortagg_2w")
     kernels = [{
         "name": "radix_sort",
@@ -1303,7 +1510,7 @@ def main():
                     "rayforce_tpu/engine/psort.py:284 "
                     "(_window_pass_kernel)",
         "launches": main_launches + join_launches + wj_launches +
-        parted_launches + mesh_launches,
+        parted_launches + mesh_launches + mj_launches,
         "max_abs_err": err,
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],

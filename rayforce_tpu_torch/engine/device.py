@@ -12,9 +12,10 @@ and which device the engine runs on.
   table at once and fetched in one transfer.
 - The mesh (`mesh`, `dev_col_sharded`): with RAYFORCE_MESH=N one
   process drives N row shards of each table (parallel/dist.py).
-- Config: the row threshold for the device path and the dense
+- Config: the row threshold for the device path, the dense
   code-space cap (the analogue of the reference's perfect-hash range
-  guard, core/index.c:2308-2424).
+  guard, core/index.c:2308-2424), and on a mesh the largest right side
+  a join replicates (`bcast_max`).
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ _cfg = {
     "device": None,        # None: from RAYFORCE_DEVICE at first use
     "threshold": 1 << 17,  # rows below this stay on the host numpy path
     "dense_max": 1 << 20,  # max dense group-code space (H*W <= ~1M)
+    "bcast_max": 1 << 22,  # a mesh join replicates a right side this big
 }
 
 
@@ -103,9 +105,10 @@ _mesh_state = {"mesh": None, "checked": False}
 def mesh():
     """The device mesh when mesh mode is on (RAYFORCE_MESH=N, or `auto`
     for one shard per visible card), else None. One process drives its
-    N shards, every shard on the engine's device: 8 shards share one
-    card, or CPU torch. Grouped selects then run as per-shard pipelines
-    with their combines (parallel/dist.py)."""
+    N shards, spread over the visible cards from the engine's (parallel/
+    dist.py make_mesh): 8 shards share one card, or CPU torch. Grouped
+    selects, joins, table sorts and window joins then run as per-shard
+    stages with their collectives (parallel/dist.py)."""
     if _mesh_state["mesh"] is not None and \
             _mesh_state.get("device") != device():
         _mesh_state["checked"] = False     # the engine moved devices

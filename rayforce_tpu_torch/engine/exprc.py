@@ -53,13 +53,21 @@ def _np_dtype(v):
     return np.asarray(v).dtype
 
 
-def _tensor(v, dtype):
-    """v (a tensor or a numpy scalar) as a tensor of `dtype` on the
-    engine's device."""
+def _tensor(v, dtype, device=None):
+    """v (a tensor or a numpy scalar) as a tensor of `dtype`. A scalar
+    goes on `device`, the device of the tensor it meets; only a
+    column-free expression, which meets none, takes the engine's."""
     if isinstance(v, torch.Tensor):
         return v.to(dtype)
-    from .device import device
-    return torch.tensor(v, dtype=dtype, device=device())
+    if device is None:
+        from .device import device as engine_device
+        device = engine_device()
+    return torch.tensor(v, dtype=dtype, device=device)
+
+
+def _device_of(*vs):
+    """The device of the first tensor among vs (None when none is)."""
+    return next((v.device for v in vs if isinstance(v, torch.Tensor)), None)
 
 
 def as_tensor(v) -> torch.Tensor:
@@ -72,7 +80,8 @@ def as_tensor(v) -> torch.Tensor:
 def _common(va, vb):
     """Both operands as tensors of their numpy-promoted dtype."""
     dt = torch_dtype(np.result_type(_np_dtype(va), _np_dtype(vb)))
-    return _tensor(va, dt), _tensor(vb, dt)
+    d = _device_of(va, vb)
+    return _tensor(va, dt, d), _tensor(vb, dt, d)
 
 
 class ColRef:
@@ -234,15 +243,19 @@ class _Compiler:
             fns = [p[0] for p in parts]
             if name == "and":
                 def g(env, fns=fns):
-                    r = _tensor(fns[0](env), torch.bool)
-                    for f in fns[1:]:
-                        r = r & _tensor(f(env), torch.bool)
+                    vs = [f(env) for f in fns]
+                    d = _device_of(*vs)
+                    r = _tensor(vs[0], torch.bool, d)
+                    for v in vs[1:]:
+                        r = r & _tensor(v, torch.bool, d)
                     return r
             else:
                 def g(env, fns=fns):
-                    r = _tensor(fns[0](env), torch.bool)
-                    for f in fns[1:]:
-                        r = r | _tensor(f(env), torch.bool)
+                    vs = [f(env) for f in fns]
+                    d = _device_of(*vs)
+                    r = _tensor(vs[0], torch.bool, d)
+                    for v in vs[1:]:
+                        r = r | _tensor(v, torch.bool, d)
                     return r
             return g, T.B8
         if name == "neg" and len(args) == 1:
@@ -297,11 +310,12 @@ class _Compiler:
               nullv=nullv):
             va = fa(env)
             vb = fb(env)
-            na = _isnull(va, ta)
-            nb = _isnull(vb, tb)
+            d = _device_of(va, vb)
+            na = _isnull(va, ta, d)
+            nb = _isnull(vb, tb, d)
             if ct == T.F64:
-                va = _tensor(va, torch.float64)
-                vb = _tensor(vb, torch.float64)
+                va = _tensor(va, torch.float64, d)
+                vb = _tensor(vb, torch.float64, d)
             else:
                 va, vb = _common(va, vb)
             if op == "add":
@@ -338,7 +352,7 @@ class _Compiler:
             nulls = na | nb
             if nullv is not None:
                 r = torch.where(nulls, _tensor(np.asarray(nullv),
-                                               r.dtype), r)
+                                               r.dtype, r.device), r)
             return r
         return g, rt
 
@@ -356,8 +370,9 @@ class _Compiler:
             va = fa(env)
             vb = fb(env)
             if f64:
-                va = _tensor(va, torch.float64)
-                vb = _tensor(vb, torch.float64)
+                d = _device_of(va, vb)
+                va = _tensor(va, torch.float64, d)
+                vb = _tensor(vb, torch.float64, d)
                 va = torch.where(torch.isnan(va), -np.inf, va)
                 vb = torch.where(torch.isnan(vb), -np.inf, vb)
             else:
@@ -383,20 +398,20 @@ def r_dtype(rt):
             T.TIMESTAMP: torch.int64}.get(rt, torch.int64)
 
 
-def _isnull(v, t):
+def _isnull(v, t, device=None):
     if isinstance(v, torch.Tensor):
         if t == T.F64:
             return torch.isnan(v)
         nv = T.NULL_BY_TYPE.get(t)
         if nv is None:
             return torch.zeros((), dtype=torch.bool, device=v.device)
-        return v == _tensor(np.asarray(nv), v.dtype)
+        return v == _tensor(np.asarray(nv), v.dtype, v.device)
     if t == T.F64:
         r = bool(np.isnan(np.float64(v)))
     else:
         nv = T.NULL_BY_TYPE.get(t)
         r = nv is not None and v == nv
-    return _tensor(np.bool_(r), torch.bool)
+    return _tensor(np.bool_(r), torch.bool, device)
 
 
 def compile_expr(tbl: Obj, ast: Obj):

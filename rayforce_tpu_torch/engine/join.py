@@ -46,7 +46,8 @@ _DEV_COL_OK_SORT = _PACKABLE + (T.F64, T.ENUM)
 NULL = int(T.NULL_I64)
 I64 = torch.int64
 
-# which join engine ran last ("device-sortmerge"), as the reference
+# which join engine ran last ("device-sortmerge", or on a mesh
+# "dist-bcast-probe", "dist-eq" or "dist-asof"), as the reference
 # records it
 last_profile: dict = {}
 
@@ -162,6 +163,26 @@ def match_ids_device(lkeys, rkeys, ltime=None, rtime=None, mode="first"):
         lcode = _pack_codes(lkeys, metas)
         rcode = _pack_codes(rkeys, metas)
         total = math.prod(rng for _lo, rng, _nb in metas)
+    m = dev.mesh()
+    if m is not None and mode == "first" and ltime is None:
+        rids = None
+        if int(rcode.shape[0]) > dev._cfg["bcast_max"]:
+            # a right side too big to replicate stays sharded: both
+            # sides route by key and each shard probes its partition
+            rids = _mesh_eq(m, lcode, rcode)
+            engine = "dist-eq"
+        if rids is None:
+            rids = _mesh_bcast(m, lcode, rcode)
+            engine = "dist-bcast-probe"
+        last_profile.clear()
+        last_profile["engine"] = engine
+        return rids
+    if m is not None and mode == "asof" and lkeys:
+        rids = _mesh_asof(m, lcode, rcode, ltime, rtime, total)
+        if rids is not None:
+            last_profile.clear()
+            last_profile["engine"] = "dist-asof"
+            return rids
     time_pack = None
     if mode == "asof" and not (dev.column_has_null(ltime) or
                                dev.column_has_null(rtime)):
@@ -183,6 +204,82 @@ def match_ids_device(lkeys, rkeys, ltime=None, rtime=None, mode="first"):
         return _match(lcode, rcode, None, None, mode, None)
     return _match(lcode, rcode, dev.dev_col(ltime), dev.dev_col(rtime),
                   mode, time_pack)
+
+
+# -- the mesh routes -----------------------------------------------------------
+#
+# With a mesh (RAYFORCE_MESH) the probes run over its row shards
+# (parallel/dist.py), on the i64 codes: the broadcast-build probe, the
+# partitioned-build probe for a right side over bcast_max rows, and the
+# ring probe for asof. Each returns the i64 match ids, NULL_I64 where
+# none, or None where the reference declines the shape too.
+
+def _mesh_bcast(m, lcode, rcode):
+    """The broadcast-build probe (dist_left_probe): the left codes
+    row-sharded, the right codes replicated."""
+    from ..parallel import dist
+    n_l = int(lcode.shape[0])
+    rid, has = dist.dist_left_probe(m)(dist.shard_rows(m, lcode, -1)[0],
+                                       rcode)
+    return torch.where(dist.unshard(has, n_l), dist.unshard(rid, n_l), NULL)
+
+
+def _mesh_eq(m, lcode, rcode):
+    """The partitioned-build probe (dist_eq_probe) with capacity retry:
+    each capacity that overflowed doubles (the return one up to a
+    shard's rows). None past 2^31 padded rows, where the i32 row ids
+    that ride the exchange would wrap."""
+    from ..parallel import dist
+    n_dev = m.n
+    n_l, n_r = int(lcode.shape[0]), int(rcode.shape[0])
+    rows_l, rows_r = -(-n_l // n_dev), -(-n_r // n_dev)
+    if n_dev * rows_l >= 2**31 or n_dev * rows_r >= 2**31:
+        return None
+    lp = dist.shard_rows(m, lcode, -1)[0]
+    rp = dist.shard_rows(m, rcode, -1)[0]
+    caps = [max(2 * rows_l // n_dev, 64), max(2 * rows_r // n_dev, 64),
+            max(2 * rows_l // n_dev, 64)]
+    while True:
+        ovf_l, ovf_r, ovf_b, rid, has = dist.dist_eq_probe(
+            m, n_l, caps[0], caps[1], cap_b=caps[2])(lp, rp)
+        o_l, o_r, o_b = torch.cat([ovf_l, ovf_r, ovf_b]).tolist()
+        if not (o_l or o_r or o_b):
+            return torch.where(dist.unshard(has, n_l),
+                               dist.unshard(rid, n_l), NULL)
+        if o_l:
+            caps[0] *= 2
+        if o_r:
+            caps[1] *= 2
+        if o_b:
+            caps[2] = min(caps[2] * 2, rows_l)
+
+
+def _mesh_asof(m, lcode, rcode, ltime, rtime, code_bound):
+    """The ring probe (dist_asof_probe); the matched right row ids ride
+    as exact f64 payloads. None where (code, time - tmin) does not fit
+    the probe's packed key: codes and the time span below 2^31."""
+    from ..parallel import dist
+    try:
+        llo, lhi = dev.column_range(ltime)
+        rlo, rhi = dev.column_range(rtime)
+    except Exception as e:
+        if dev.is_fault(e):
+            raise
+        return None
+    tmin = int(min(int(llo), int(rlo)))
+    tspan = int(max(int(lhi), int(rhi))) - tmin
+    if tspan >= (1 << 31) or tspan < 0 or code_bound >= (1 << 31):
+        return None
+    n_l, n_r = int(lcode.shape[0]), int(rcode.shape[0])
+    lt = dev.dev_col(ltime).to(I64) - tmin
+    rt_ = dev.dev_col(rtime).to(I64) - tmin
+    rv = torch.arange(n_r, dtype=torch.float64, device=rcode.device)
+    val, hit = dist.dist_asof_probe(m)(
+        dist.shard_rows(m, lcode, -1)[0], dist.shard_rows(m, lt, 0)[0],
+        dist.shard_rows(m, rcode, -1)[0], dist.shard_rows(m, rt_, 0)[0],
+        dist.shard_rows(m, rv, math.nan)[0])
+    return torch.where(dist.unshard(hit, n_l),
+                       dist.unshard(val, n_l).to(I64), NULL)
 
 
 # -- lazy output columns ------------------------------------------------------

@@ -27,7 +27,8 @@ from .join import _DEV_COL_OK_SORT, lazy_take_col
 I64 = torch.int64
 _I32_SPAN = 1 << 32
 
-# {"engine": "device-sort"} after a device table sort
+# {"engine": "device-sort"} after a device table sort ("dist-sort" on
+# a mesh)
 last_profile: dict = {}
 
 
@@ -88,15 +89,40 @@ def _key_array(col):
     return None
 
 
+def _mesh_order(m, keys, n, desc):
+    """The row order by the mesh's overflow-safe sample sort
+    (parallel/dist.py dist_sort_auto, the reference's parallel order-by,
+    core/order.c:246), each key row-sharded."""
+    from ..parallel import dist
+    order = dist.dist_sort_auto(m, n, tuple(k.dtype for k in keys))(
+        *[dist.shard_rows(m, k)[0] for k in keys])
+    return order.flip(0) if desc else order
+
+
 def table_order_device(key_cols: list, desc: bool):
     """The row order (an i64 device tensor), or None when a key is
-    unsupported."""
+    unsupported. With a mesh the sample sort runs first; an error that
+    is not a device fault falls back to the one-device sort, as in the
+    reference."""
     keys = []
     for c in key_cols:
         k = _key_array(c)
         if k is None:
             return None
         keys.append(k)
+    m = dev.mesh()
+    n = int(keys[0].shape[0])
+    if m is not None and n > 0:
+        try:
+            order = _mesh_order(m, keys, n, desc)
+        except Exception as e:
+            if dev.is_fault(e):
+                raise
+            from .select import warn_fallback
+            warn_fallback(e)
+        else:
+            last_profile["engine"] = "dist-sort"
+            return order
     last_profile["engine"] = "device-sort"
     order = psort.sort_lex(keys, perm=True)[2].to(I64)
     return order.flip(0) if desc else order

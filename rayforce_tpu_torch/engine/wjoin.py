@@ -54,9 +54,10 @@ AGGS = ("count", "first", "last", "sum", "avg", "min", "max", "dev")
 
 I64 = torch.int64
 F64 = torch.float64
+I32 = torch.int32
 
-# which window-join engine ran last ("device-wjoin"), as the reference
-# records it
+# which window-join engine ran last ("device-wjoin", or "dist-wjoin" on a
+# mesh), as the reference records it
 last_profile: dict = {}
 
 
@@ -150,14 +151,18 @@ def _prefix_count(mask):
 
 # -- boundaries ---------------------------------------------------------------
 
-def _boundary_core(lcode, rcode, rt, lo, hi, n_codes, tp, pack):
+def _boundary_core(lcode, rcode, rt, lo, hi, n_codes, tp, pack,
+                   lvalid=None):
     """(sr, li, ri, ok): the right table's sort permutation (sorted right
     row i is row sr[i]) and, per left row, its clamped window [li, ri]
     into the sorted right rows and whether the window holds a row.
 
     `pack` = (tmin, tbits) where (code, time - tmin, tie) fit one i64
     sort key; else the keys are (code, time[, tie]) with the code as one
-    i32 word (codes lie in [0, n_codes), n_codes <= dense_max)."""
+    i32 word (codes lie in [0, n_codes], n_codes <= dense_max). On the
+    mesh a shard's received buffers hold pad rows: right ones carry the
+    trash code n_codes (they sort after every real code), left ones are
+    masked by `lvalid` (their ok is False)."""
     nl, nr = int(lcode.shape[0]), int(rcode.shape[0])
     d = lcode.device
     probes = torch.arange(n_codes + 1, dtype=I64, device=d)
@@ -216,7 +221,10 @@ def _boundary_core(lcode, rcode, rt, lo, hi, n_codes, tp, pack):
         valid = has_group & (p_hi - p_lo > 0)
     else:
         valid = has_group & (p_hi - g_fi > 0)
-    return sr.long(), safe_li, safe_ri, valid & (li <= ri)
+    ok = valid & (li <= ri)
+    if lvalid is not None:
+        ok = ok & lvalid
+    return sr.long(), safe_li, safe_ri, ok
 
 
 # -- aggregates over the sorted right column ----------------------------------
@@ -430,6 +438,163 @@ def _k_minmax(sv, li, ri, ok, rtype, op, span):
     return out.to(sv.dtype)
 
 
+# -- the mesh window join -------------------------------------------------------
+
+def _span_of(li, ri, ok):
+    """A zero-argument callable giving the widest window that holds a
+    row (one host fetch, at the first call)."""
+    memo = []
+
+    def span():
+        if not memo:
+            memo.append(int(torch.where(ok, ri - li + 1, 1).max()))
+        return memo[0]
+    return span
+
+
+def _out_type(op, rtype):
+    """The output column type of aggregate `op` over a column of rtype."""
+    if op == "count":
+        return T.I64
+    if op in ("avg", "dev"):
+        return T.F64
+    return SUM_TYPE[rtype] if op == "sum" else rtype
+
+
+def _aggregate(op, rtype, sv, li, ri, ok, span):
+    """One aggregate lane over the sorted right values sv (None for
+    count); span: a zero-argument callable giving the widest window
+    (min and max only)."""
+    if op == "count":
+        return _k_count(li, ri, ok)
+    if op in ("first", "last"):
+        return _k_first_last(sv, li, ri, ok, rtype, op == "last")
+    if op in ("sum", "avg"):
+        return _k_sum_avg(sv, li, ri, ok, rtype, op == "avg")
+    if op == "dev":
+        return _k_dev(sv, li, ri, ok, rtype)
+    return _k_minmax(sv, li, ri, ok, rtype, op, span())
+
+
+def _mesh_wjoin_kernel(mesh, n_codes, tp, cap_l, cap_r, cap_b, nl_total,
+                       aggs_spec, pay_dtypes):
+    """Distributed window join: both tables route rows by code % n_shards
+    (parallel/dist.py `_shuffle`), each shard remaps its codes densely
+    (c // n_shards) and runs the boundaries and the aggregates over its
+    complete key partition (windows never cross keys, so every shard's
+    answers are exact), and each result lane goes back to its left row's
+    owner (dist `_route_back`): the output is row-sharded in the left
+    order with no replicating all_gather. Code and row-id lanes ride as
+    i32, times as i64, payloads with their fills (NaN for f64, else 0).
+    The received payloads are gathered by the shard's sort permutation,
+    as on one device.
+
+    aggs_spec: (op, payload lane | None, rtype) per output. fn(lcode, lo,
+    hi, rcode, rts, *payloads), per-shard lists (codes -1 on pad rows)
+    -> (ovf_l, ovf_r, ovf_b (1,) each, per aggregate the per-shard
+    lanes); an overflow means a bucket was too small, and the caller
+    retries with it doubled."""
+    from ..parallel import dist
+    n_dev = mesh.n
+    n_local = -(-n_codes // n_dev)
+    n_pay = len(pay_dtypes)
+
+    def fill(dtype):
+        return math.nan if dtype == F64 else 0
+
+    def shard_lanes(xl, xr):
+        """One shard's aggregate lanes over its received rows."""
+        lcode, lo, hi, lrow = xl
+        rcode, rts = xr[:2]
+        lval = lrow >= 0
+        llocal = torch.where(lval, lcode.to(I64) // n_dev, n_local)
+        rlocal = torch.where(rcode >= 0, rcode.to(I64) // n_dev, n_local)
+        sr, li, ri, ok = _boundary_core(llocal, rlocal, rts, lo, hi,
+                                        n_local, tp, None, lvalid=lval)
+        span = _span_of(li, ri, ok)
+        spays = [p.index_select(0, sr) for p in xr[2:]]
+        return [_aggregate(op, rtype, None if lane is None else spays[lane],
+                           li, ri, ok, span)
+                for op, lane, rtype in aggs_spec]
+
+    def kernel(lcode, lo, hi, rcode, rts, *rpays):
+        nl = int(lcode[0].shape[0])
+        lrow = [me * nl + torch.arange(nl, device=c.device)
+                for me, c in enumerate(lcode)]
+        xl, ovf_l = dist._shuffle(
+            [c % n_dev for c in lcode], [r < nl_total for r in lrow],
+            [[(c.to(I32), -1), (a, 0), (b, 0), (r.to(I32), -1)]
+             for c, a, b, r in zip(lcode, lo, hi, lrow)], n_dev, cap_l)
+        xr, ovf_r = dist._shuffle(
+            [c % n_dev for c in rcode], [c >= 0 for c in rcode],
+            [[(c.to(I32), -1), (t, 0)] +
+             [(p[me], fill(p[me].dtype)) for p in rpays]
+             for me, (c, t) in enumerate(zip(rcode, rts))], n_dev, cap_r)
+        lanes = [shard_lanes([x[d] for x in xl], [x[d] for x in xr])
+                 for d in range(n_dev)]
+        per_lane = [[ln[j] for ln in lanes] for j in range(len(aggs_spec))]
+        ovf_b, outs = dist._route_back(
+            xl[3], per_lane, [fill(x[0].dtype) for x in per_lane], nl,
+            cap_b)
+        return (dist.psum(ovf_l)[0], dist.psum(ovf_r)[0], ovf_b, *outs)
+
+    lane_bytes = 8 * len(aggs_spec)
+    _a2a = n_dev * (n_dev - 1) * \
+        ((4 + 8 + 8 + 4) * cap_l + (4 + 8 + 8 * n_pay) * cap_r)
+    _a2ab = n_dev * (n_dev - 1) * cap_b * (4 + lane_bytes)
+    return dist._counted(kernel, lambda *a: _a2a + _a2ab)
+
+
+def _mesh_window_join(m, lcode, rcode, rt_d, lo_d, hi_d, n_codes, tp, aggs):
+    """The mesh route: shard the code, time and payload lanes, run the
+    distributed kernel with capacity retry (each overflowed capacity
+    doubles, the return one up to a shard's rows), and wrap each result
+    lane as a typed column. None where the reference declines: a
+    shard's code space over dense_max, or 2^31 padded rows, where the
+    i32 row ids that ride the exchange would wrap."""
+    from ..parallel import dist
+    n_dev = m.n
+    nl, nr = int(lcode.shape[0]), int(rcode.shape[0])
+    if -(-n_codes // n_dev) > dev._cfg["dense_max"]:
+        return None
+    rows_l, rows_r = -(-nl // n_dev), -(-nr // n_dev)
+    if n_dev * rows_l >= 2**31 or n_dev * rows_r >= 2**31:
+        return None
+    pay_cols, pay_slot = [], {}
+    for _sid, name, rcol, _rt in aggs:
+        if name != "count" and id(rcol) not in pay_slot:
+            pay_slot[id(rcol)] = len(pay_cols)
+            pay_cols.append(rcol)
+    aggs_spec = tuple((name, pay_slot[id(rcol)] if name != "count" else None,
+                       rtype) for _sid, name, rcol, rtype in aggs)
+    pays = [dev.dev_col(c) for c in pay_cols]
+    pay_dtypes = tuple(str(p.dtype) for p in pays)
+
+    def shard(a, f):
+        return dist.shard_rows(m, a, f)[0]
+    args = [shard(lcode, -1), shard(lo_d, 0), shard(hi_d, 0),
+            shard(rcode, -1), shard(rt_d, 0)] + \
+        [shard(p, math.nan if p.dtype == F64 else 0) for p in pays]
+    caps = [max(2 * rows_l // n_dev, 64), max(2 * rows_r // n_dev, 64),
+            max(2 * rows_l // n_dev, 64)]
+    while True:
+        outs = _mesh_wjoin_kernel(m, n_codes, tp, *caps, nl, aggs_spec,
+                                  pay_dtypes)(*args)
+        o_l, o_r, o_b = torch.cat(outs[:3]).tolist()
+        if not (o_l or o_r or o_b):
+            break
+        if o_l:
+            caps[0] *= 2
+        if o_r:
+            caps[1] *= 2
+        if o_b:
+            caps[2] = min(caps[2] * 2, rows_l)
+    return {out_sid: _lazy(_out_type(name, rtype),
+                           lambda x=dist.unshard(lane, nl): x, nl,
+                           _out_domain(name, rcol))
+            for (out_sid, name, rcol, rtype), lane in zip(aggs, outs[3:])}
+
+
 # -- entry --------------------------------------------------------------------
 
 def _torch_dtype(t):
@@ -479,6 +644,11 @@ def _lazy(t, thunk, n, domain=None):
     return o
 
 
+def _out_domain(op, rcol):
+    """first and last keep the right column's domain (an enum's)."""
+    return rcol.domain if op in ("first", "last") else None
+
+
 def window_join_device(lkeys, rkeys, lo, hi, aggs, tp):
     """Window aggregates on the device. lkeys/rkeys: the leading key
     columns, then the time column. lo, hi: each left row's window
@@ -502,6 +672,13 @@ def window_join_device(lkeys, rkeys, lo, hi, aggs, tp):
         return None
     rt_d = dev.dev_col(time_r).to(I64)
     last_profile.clear()
+    m = dev.mesh()
+    if m is not None:
+        res = _mesh_window_join(m, lcode, rcode, rt_d, lo_d, hi_d, n_codes,
+                                tp, aggs)
+        if res is not None:
+            last_profile["engine"] = "dist-wjoin"
+            return res
     last_profile["engine"] = "device-wjoin"
     # (code, time - tmin, tie) as one i64 sort key where it fits; a null
     # right time lies outside the stats range, so it keeps two keys
@@ -516,40 +693,17 @@ def window_join_device(lkeys, rkeys, lo, hi, aggs, tp):
     sr, li, ri, ok = _boundary_core(lcode, rcode, rt_d, lo_d, hi_d,
                                     n_codes, tp, pack)
 
-    memo: dict = {}
+    gathered: dict = {}
 
     def sorted_col(col):
         """A right column in the sorted right order, gathered once."""
-        if ("col", id(col)) not in memo:
-            memo[("col", id(col))] = dev.dev_col(col).index_select(0, sr)
-        return memo[("col", id(col))]
+        if id(col) not in gathered:
+            gathered[id(col)] = dev.dev_col(col).index_select(0, sr)
+        return gathered[id(col)]
 
-    def span():
-        """The widest window that holds a row (one host fetch)."""
-        if "span" not in memo:
-            memo["span"] = int(torch.where(ok, ri - li + 1, 1).max())
-        return memo["span"]
-
-    out = {}
-    for out_sid, name, rcol, rtype in aggs:
-        if name == "count":
-            out[out_sid] = _lazy(T.I64, lambda: _k_count(li, ri, ok), nl)
-        elif name in ("first", "last"):
-            out[out_sid] = _lazy(
-                rtype, lambda c=rcol, lst=(name == "last"), t=rtype:
-                _k_first_last(sorted_col(c), li, ri, ok, t, lst), nl,
-                domain=rcol.domain)
-        elif name in ("sum", "avg"):
-            ot = T.F64 if name == "avg" else SUM_TYPE[rtype]
-            out[out_sid] = _lazy(
-                ot, lambda c=rcol, w=(name == "avg"), t=rtype:
-                _k_sum_avg(sorted_col(c), li, ri, ok, t, w), nl)
-        elif name == "dev":
-            out[out_sid] = _lazy(
-                T.F64, lambda c=rcol, t=rtype:
-                _k_dev(sorted_col(c), li, ri, ok, t), nl)
-        else:
-            out[out_sid] = _lazy(
-                rtype, lambda c=rcol, op=name, t=rtype:
-                _k_minmax(sorted_col(c), li, ri, ok, t, op, span()), nl)
-    return out
+    span = _span_of(li, ri, ok)
+    return {out_sid: _lazy(
+        _out_type(name, rtype), lambda op=name, c=rcol, t=rtype: _aggregate(
+            op, t, None if op == "count" else sorted_col(c), li, ri, ok,
+            span), nl, _out_domain(name, rcol))
+        for out_sid, name, rcol, rtype in aggs}

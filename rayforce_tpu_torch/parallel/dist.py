@@ -7,25 +7,31 @@ same decompositions run over a mesh of N shards driven by one process:
 
 - rows are sharded over the mesh axis ("d"), shard i holding rows
   [i * rows_local, (i + 1) * rows_local) of the table padded to a
-  multiple of N, every shard on the engine's device (so 8 shards share
-  one card, or CPU torch in the tests);
+  multiple of N, the shards spread over the visible cards (8 shards
+  share one card, or CPU torch in the tests);
 - group-by computes per-shard dense partial aggregates and combines them
   with `psum` / `pmin` / `pmax`, the analogue of per-thread partial
   vectors + the AGGR_COLLECT pairwise merge (aggr.c:163-181);
 - high-cardinality group-bys and medians route partials or rows by code
   with `all_to_all`, the analogue of the radix partition scatter
-  (index.c:2556-2729).
+  (index.c:2556-2729);
+- table sorts route rows by sampled splitter ranges, joins and window
+  joins by key (or replicate a small right side, or rotate sorted right
+  shards around a ring for asof), and results go back to each row's
+  owner shard (`_route_back`).
 
 A collective is a plain function over the list of per-shard tensors. Its
 reductions run in the fixed shard order 0..N-1, so a rerun is bit for bit
 the same; a move between shards is `.to(device)`, a device-local copy
-while the shards share one device. A kernel whose collectives fall in the
+where the shards share a device. A kernel whose collectives fall in the
 middle is a sequence of stages, each a loop over the shards, with the
 collective between them. A replicated result is computed once, on shard
 0's device. Every sort goes through the engine's psort entry, so on the
 card each is a launch of the CUDA radix sort.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -84,10 +90,12 @@ class Mesh:
 
 
 def make_mesh(n_devices=None, axis="d", device=None) -> Mesh:
-    """A mesh of n_devices shards (default: one per visible card), every
-    shard on `device` (default: the engine's device). One process drives
-    every shard. Spreading the shards over several cards is not verified
-    on a host of several cards yet (ROADMAP queue 3), so they share one."""
+    """A mesh of n_devices shards (default: one per visible card) on
+    `device`'s kind (default: the engine's device). On CUDA shard i sits
+    on card (c + i) % count of the visible cards, c the engine's, so
+    shard 0 is on the engine's card and 8 shards share one card or
+    spread over four; on the CPU every shard is on it. One process
+    drives every shard."""
     if device is None:
         from ..engine import device as dev
         device = dev.device()
@@ -97,18 +105,24 @@ def make_mesh(n_devices=None, axis="d", device=None) -> Mesh:
     n = int(n_devices)
     if n < 1:
         raise ValueError(f"a mesh needs at least one shard, not {n}")
-    return Mesh([d] * n, axis)
+    if d.type != "cuda":
+        return Mesh([d] * n, axis)
+    count = torch.cuda.device_count()
+    c = torch.cuda.current_device() if d.index is None else d.index
+    return Mesh([torch.device("cuda", (c + i) % count) for i in range(n)],
+                axis)
 
 
-def shard_rows(mesh: Mesh, arr):
-    """Row-shard a host array or tensor over the mesh, padded with zeros
-    to a multiple of the shard count. Returns (per-shard tensors, pad)."""
+def shard_rows(mesh: Mesh, arr, fill=0):
+    """Row-shard a host array or tensor over the mesh, padded with
+    `fill` to a multiple of the shard count. Returns (per-shard tensors,
+    pad)."""
     t = arr if isinstance(arr, torch.Tensor) else \
         torch.from_numpy(np.ascontiguousarray(arr))
     n = mesh.n
     pad = (-int(t.shape[0])) % n
     if pad:
-        t = torch.cat([t, t.new_zeros(pad)])
+        t = torch.cat([t, t.new_full((pad,), fill)])
     per = int(t.shape[0]) // n
     return [t[i * per:(i + 1) * per].to(d)
             for i, d in enumerate(mesh.devices)], pad
@@ -157,6 +171,12 @@ def all_gather(xs):
 def axis_index(mesh: Mesh):
     """Each shard's position along the mesh axis."""
     return list(range(mesh.n))
+
+
+def unshard(xs, n):
+    """Row-sharded per-shard tensors as one tensor of their first n rows,
+    on shard 0's device."""
+    return torch.cat([x.to(xs[0].device) for x in xs])[:n]
 
 
 # -- shard-local helpers ------------------------------------------------------
@@ -364,6 +384,55 @@ def _shuffle(dest, live, cols, n_dev, cap):
         sends.append([_place(x, slot, n_dev * cap, f) for x, f in cs])
     return [all_to_all([s[j] for s in sends])
             for j in range(len(cols[0]))], ovf
+
+
+def _route_back(lrows, lanes, fills, nl, cap, extra=None):
+    """Rows back to their owners by global row id: the row of id g (-1
+    for none; a left row's id, or a sorted row's global position) goes
+    to shard g // nl at offset g % nl. Rows a shard owns skip the exchange (the diagonal bypass);
+    the others ride one all_to_all of `cap` rows per (source,
+    destination). Each owner places what arrived, its own rows and
+    `extra[d]` ((targets, lane values) of rows that never left) by
+    offset into buffers of nl rows; the offsets are unique, so the
+    placement is the reference's offset sort. lrows: per shard; lanes:
+    per lane, per shard. Returns (overflow (1,), per lane the per-shard
+    outputs)."""
+    n_dev = len(lrows)
+    size = n_dev * cap
+    sends, keeps, ovf = [], [], []
+    for me, lr in enumerate(lrows):
+        dv = lr.device
+        lv = lr >= 0
+        dst = torch.where(lv, lr // nl, n_dev).to(I64)
+        off = torch.where(lv, lr % nl, -1).to(I32)
+        mine = lv & (dst == me)
+        away = lv & ~mine
+        slot, ok = _bucket_slots(dst, n_dev, cap, away)
+        ovf.append((away & ~ok).sum().to(I64).reshape(1))
+        sends.append([_place(off, slot, size, -1)] +
+                     [_place(ln[me], slot, size, f)
+                      for ln, f in zip(lanes, fills)])
+        keeps.append(torch.where(mine, off.to(I64),
+                                 _dropped(int(lr.shape[0]), nl, dv)))
+    recv = [all_to_all([s[j] for s in sends])
+            for j in range(1 + len(lanes))]
+    outs = [[] for _ in lanes]
+    for me in range(n_dev):
+        xo = recv[0][me]
+        parts = [(keeps[me], [ln[me] for ln in lanes]),
+                 (torch.where(xo >= 0, xo.to(I64),
+                              _dropped(int(xo.shape[0]), nl, xo.device)),
+                  [r[me] for r in recv[1:]])]
+        if extra is not None:
+            parts.append(extra[me])
+        for j, f in enumerate(fills):
+            like = recv[1 + j][me]
+            buf = torch.full((nl + _DROP,), f, dtype=like.dtype,
+                             device=like.device)
+            for tgt, vals in parts:
+                buf[tgt] = vals[j]
+            outs[j].append(buf[:nl])
+    return psum(ovf)[0], outs
 
 
 def dist_shuffle(mesh: Mesh, capacity: int):
@@ -814,3 +883,361 @@ def dist_med_groupby_auto(mesh: Mesh, rows_local: int, n_lanes: int):
                 caps[1] *= 2
 
     return run
+
+
+# -- distributed table sort (sample sort) -------------------------------------
+
+def _lex_ge(keys, sps, j, rid, sp_rid):
+    """(keys, rid) >= (splitter j's keys, its rid), folding the
+    comparison from the last key backward: rid is the last tie-break,
+    so the order is total and the routing keeps the sort stable."""
+    res = rid >= sp_rid[j]
+    for k, sp in zip(reversed(keys), reversed(sps)):
+        s = sp[j]
+        res = (k > s) | ((k == s) & res)
+    return res
+
+
+def _order_key(k):
+    """A sort key as the sorts compare it, so that the splitter compares
+    agree with them: an f64 key as its order bits (psort.f64_order) after
+    the sort's canonical form (-0.0 ties 0.0; every NaN is one NaN, after
+    +inf); an integer key as it is."""
+    if k.dtype == F64:
+        return f64_order(torch.where(torch.isnan(k), math.nan, k + 0.0))
+    return k
+
+
+def _key_fill(dtype):
+    """The pad rows' key: above every real key of an order key of
+    `dtype` (an f64 key rides as i64 order bits)."""
+    return KEY_MAX if dtype in (I64, F64) else torch.iinfo(dtype).max
+
+
+def dist_sort(mesh: Mesh, n_rows: int, key_dtypes, cap: int,
+              n_samples: int = 64, cap3: int | None = None):
+    """Distributed multi-key table sort, a sample sort (the mesh
+    analogue of the reference's parallel order-by, core/order.c:246):
+
+      1. each shard sorts (keys..., global row id);
+      2. n_samples evenly spaced rows of each sorted run are gathered
+         and sorted once; every n_samples-th is a splitter tuple;
+      3. a row goes to the shard whose splitter range holds it: the
+         count of splitters its (keys, row id) is >= (`_lex_ge`), which
+         is monotone along the sorted run;
+      4. one all_to_all moves the rows, `cap` per (source, destination);
+         rows past it are counted in the overflow, never dropped
+         silently (dist_sort_auto retries doubled);
+      5. each shard sorts what it received: the shards' runs in shard
+         order are the global order;
+      6. rebalance to even shards: a row's global position p is the
+         rows on the shards before plus its rank, and it goes to the
+         owner of p (`_route_back`: rows already there stay, the others
+         ride a second all_to_all of `cap3` per pair, each owner places
+         its rows by offset). One all_gather of the even shards is the
+         replicated permutation.
+
+    fn(*keys) with per-shard lists of i32, i64 or f64 keys -> (overflow
+    (1,), the i64 order of the n_rows rows). Pad rows (global row id >=
+    n_rows) sort last and are cut. An f64 key is compared by its order
+    bits: the reference compares its splitters by IEEE float compares
+    while its sorts put NaN last, which misroutes NaN keys (ROADMAP
+    queue 3); the engine maps NaN to -inf first, so no query meets
+    that."""
+    n_dev = mesh.n
+    nk = len(key_dtypes)
+    S = n_samples
+    rows_out = -(-n_rows // n_dev)
+    if cap3 is None:
+        cap3 = min(max(2 * rows_out // n_dev, 64), rows_out)
+    cap3 = min(cap3, rows_out)
+    fills = [_key_fill(dt) for dt in key_dtypes] + [KEY_MAX]
+
+    def local_sort(me, keys):
+        n = int(keys[0].shape[0])
+        rid = me * n + torch.arange(n, device=keys[0].device)
+        valid = rid < n_rows
+        ks = [torch.where(valid, _order_key(k), f)
+              for k, f in zip(keys, fills)]
+        return sort_lex(ks + [torch.where(valid, rid, KEY_MAX)])[0]
+
+    def splitters(runs):
+        n = int(runs[0][0].shape[0])
+        dv = runs[0][0].device
+        pos = torch.clamp((torch.arange(S, device=dv) * n) // S +
+                          max(n // (2 * S), 0), 0, n - 1)
+        gathered = [all_gather([r[j][pos.to(r[j].device)] for r in runs])[0]
+                    for j in range(nk + 1)]
+        gs = sort_lex(gathered)[0]
+        at = torch.arange(1, n_dev, device=dv) * S
+        return [g[at] for g in gs]
+
+    def route(run, sps):
+        n = int(run[0].shape[0])
+        dv = run[0].device
+        sp = [x.to(dv) for x in sps]
+        dest = torch.zeros(n, dtype=I64, device=dv)
+        for j in range(n_dev - 1):
+            dest += _lex_ge(run[:nk], sp[:nk], j, run[nk], sp[nk])
+        # dest ascends along the run: a row's place in its bucket is
+        # its distance from the bucket's first row
+        start = torch.searchsorted(dest, torch.arange(n_dev, device=dv))
+        within = torch.arange(n, device=dv) - start[dest]
+        ok = within < cap
+        slot = torch.where(ok, dest * cap + within,
+                           _dropped(n, n_dev * cap, dv))
+        return ([_place(x, slot, n_dev * cap, f) for x, f in zip(run, fills)],
+                (~ok).sum().to(I64).reshape(1))
+
+    def kernel(*keys):
+        runs = [local_sort(me, [k[me] for k in keys]) for me in range(n_dev)]
+        sps = splitters(runs)
+        sent = [route(r, sps) for r in runs]
+        ovf = psum([o for _s, o in sent])[0]
+        recv = [all_to_all([s[j] for s, _o in sent]) for j in range(nk + 1)]
+        mrid = [sort_lex([r[d] for r in recv])[0][nk] for d in range(n_dev)]
+        valid = [r != KEY_MAX for r in mrid]
+        counts = all_gather([v.sum().to(I64).reshape(1) for v in valid])[0]
+        first = torch.cumsum(counts, 0) - counts    # exclusive scan
+        # each row's global position, whose owner takes it at its offset
+        pos = [torch.where(v, first.to(v.device)[me] +
+                           torch.cumsum(v.to(I64), 0) - 1, -1)
+               for me, v in enumerate(valid)]
+        ovf3, (shards,) = _route_back(pos, [mrid], [KEY_MAX], rows_out, cap3)
+        return ovf + ovf3.to(ovf.device), all_gather(shards)[0][:n_rows]
+
+    _smp = (nk + 1) * n_dev * (n_dev - 1) * S * 8
+    _a2a = (nk + 1) * n_dev * (n_dev - 1) * cap * 8
+    _a2a3 = n_dev * (n_dev - 1) * cap3 * (4 + 8)
+    _ag = n_dev * (n_dev - 1) * rows_out * 8
+    _cnt = n_dev * (n_dev - 1) * 8
+    return _counted(kernel, lambda *a: _smp + _a2a + _a2a3 + _ag + _cnt)
+
+
+def dist_sort_auto(mesh: Mesh, n_rows: int, key_dtypes):
+    """Overflow-safe distributed sort: the per-(source, destination)
+    capacities start at twice the balanced expectation and double on
+    overflow (cap3 up to a shard's rows), each tried pair cached.
+    run(*keys) -> the i64 order."""
+    n_dev = mesh.n
+    rows_local = -(-n_rows // n_dev)
+    cap0 = max(2 * rows_local // n_dev, 64)
+    tried = {}
+
+    def run(*keys):
+        c = c3 = cap0
+        while True:
+            if (c, c3) not in tried:
+                tried[(c, c3)] = dist_sort(
+                    mesh, n_rows, tuple(k[0].dtype for k in keys), c,
+                    cap3=c3)
+            ovf, order = tried[(c, c3)](*keys)
+            if int(ovf[0]) == 0:
+                return order
+            # one counter covers both exchanges: double both
+            c *= 2
+            c3 = min(c3 * 2, rows_local)
+
+    return run
+
+
+# -- distributed joins --------------------------------------------------------
+
+def dist_left_probe(mesh: Mesh):
+    """Distributed left/inner-join probe, broadcast-build: the (smaller)
+    right key column is replicated and each shard probes its row shard
+    of the left keys (the reference's HT build + probe, core/index.c:
+    2886, with the build side broadcast). The right column is the same
+    on every shard, so its (key, position) sort runs once.
+
+    fn(lkeys per shard, rkeys replicated) -> per shard (right row id,
+    -1 where none; has match): the first right row with an equal key."""
+    n_dev = mesh.n
+
+    def kernel(lkeys, rkeys):
+        nr = int(rkeys.shape[0])
+        # a stable sort by key is the (key, position) sort
+        (sk,), _, sp = sort_lex([rkeys], perm=True)
+        sp = sp.to(I64)
+        rids, hass = [], []
+        for lk in lkeys:
+            skd, spd = sk.to(lk.device), sp.to(lk.device)
+            ixc = torch.searchsorted(skd, lk).clamp(0, nr - 1)
+            has = skd[ixc] == lk
+            rids.append(torch.where(has, spd[ixc], -1))
+            hass.append(has)
+        return rids, hass
+
+    # the broadcast of the replicated right key column
+    return _counted(kernel, lambda lk, rk: (n_dev - 1) * rk.numel() * 8)
+
+
+_EQ_KPER = 16    # locally-heavy candidate keys per shard and side
+
+
+def dist_eq_probe(mesh: Mesh, n_total_l: int, cap_l: int, cap_r: int,
+                  cap_b: int | None = None):
+    """Partitioned-build distributed left/inner-join probe: both sides
+    route rows by key % n_shards (all_to_all of `cap_l` / `cap_r` rows
+    per (source, destination); overflow counted, never dropped
+    silently), each shard sorts its right rows by (key, global row id)
+    and probes its left rows with a first-match searchsorted, and each
+    result goes back to its left row's owner (`_route_back`, `cap_b`),
+    so the output is row-sharded in the left order with no replicating
+    all_gather. The reference's HT build + probe
+    (core/index.c:2886-2998) with the build side partitioned.
+
+    SKEW: each shard nominates its _EQ_KPER locally heavy keys on either
+    side (a run longer than cap / 2: by pigeonhole every key that could
+    overflow a bucket is locally heavy somewhere). The candidates are
+    gathered; each resolves to its first right row id by one pmin over
+    the unrouted right shards, and rows with a candidate key never ride
+    the exchange.
+
+    fn(lkey, rkey) with per-shard i64 keys (>= 0 real, -1 padding) ->
+    (ovf_l, ovf_r, ovf_b (1,) each, per shard right row ids (-1 where
+    none), per shard has-match). Left row ids ride as i32."""
+    n_dev = mesh.n
+    KPER = _EQ_KPER
+    KC = 2 * KPER * n_dev
+
+    def local_heavy(keys, theta):
+        """The shard's KPER keys with the longest runs over theta, most
+        rows first, ties by key (KEY_MAX fills)."""
+        (cs,), _ = sort_lex([torch.where(keys >= 0, keys, KEY_MAX)])
+        cvalid = cs != KEY_MAX
+        flags = cvalid & _new_run(cs)
+        rs = torch.cumsum(flags.to(I32) + (~cvalid).to(I32), 0,
+                          dtype=I32).flip(0)
+        runlen = _rscan(rs, torch.ones_like(cs), "sum")
+        heavy = flags & (runlen > theta)
+        _h, (hc,) = sort_lex([torch.where(heavy, -runlen, KEY_MAX)],
+                             ops=[torch.where(heavy, cs, KEY_MAX)])
+        if int(hc.shape[0]) < KPER:
+            hc = torch.cat([hc, hc.new_full((KPER - int(hc.shape[0]),),
+                                            KEY_MAX)])
+        return hc[:KPER]
+
+    def member(cand, keys):
+        posc = torch.searchsorted(cand, keys).clamp(0, KC - 1)
+        return (cand[posc] == keys) & (keys >= 0), posc
+
+    def kernel(lkey, rkey):
+        nl = int(lkey[0].shape[0])
+        nr = int(rkey[0].shape[0])
+        capb = cap_b if cap_b is not None else max(2 * nl // n_dev, 64)
+
+        # ---- heavy candidates, resolved on the unrouted right shards --
+        cand = all_gather([torch.cat([local_heavy(lk, cap_l // 2),
+                                      local_heavy(rk, cap_r // 2)])
+                           for lk, rk in zip(lkey, rkey)])[0]
+        (cand,), _ = sort_lex([cand])
+        cmins = []
+        for me, rk in enumerate(rkey):
+            c = cand.to(rk.device)
+            # row ids ascend within a shard: the stable key sort is the
+            # (key, row id) sort
+            (lsk,), _, lperm = sort_lex([torch.where(rk >= 0, rk, KEY_MAX)],
+                                        perm=True)
+            cpc = torch.searchsorted(lsk, c).clamp(0, nr - 1)
+            chit = (lsk[cpc] == c) & (c != KEY_MAX)
+            cmins.append(torch.where(chit, me * nr + lperm[cpc].to(I64),
+                                     KEY_MAX))
+        cmin = pmin(cmins)[0]
+
+        # ---- the other rows routed by key % n_shards ------------------
+        ml = [member(cand.to(k.device), k) for k in lkey]
+        mr = [member(cand.to(k.device), k)[0] for k in rkey]
+        (xlk, xlr), ovf_l = _shuffle(
+            [k % n_dev for k in lkey],
+            [(k >= 0) & ~h for k, (h, _p) in zip(lkey, ml)],
+            [[(k, -1), ((me * nl + torch.arange(nl, device=k.device))
+                        .to(I32), -1)] for me, k in enumerate(lkey)],
+            n_dev, cap_l)
+        (xrk, xrr), ovf_r = _shuffle(
+            [k % n_dev for k in rkey],
+            [(k >= 0) & ~h for k, h in zip(rkey, mr)],
+            [[(k, -1), (me * nr + torch.arange(nr, device=k.device),
+                        KEY_MAX)] for me, k in enumerate(rkey)],
+            n_dev, cap_r)
+
+        # ---- per shard: first match = smallest right row id -----------
+        rids, hass = [], []
+        for xk, xr, lk in zip(xrk, xrr, xlk):
+            # the received rows' ids ascend (source shards in order, rows
+            # in order): the stable key sort is the (key, row id) sort
+            (srk,), (srr,) = sort_lex([torch.where(xk >= 0, xk, KEY_MAX)],
+                                      ops=[xr])
+            ixc = torch.searchsorted(srk, lk.clamp(min=0)) \
+                .clamp(0, int(srk.shape[0]) - 1)
+            has = (srk[ixc] == lk) & (lk >= 0)
+            rids.append(torch.where(has, srr[ixc], -1))
+            hass.append(has)
+
+        # ---- back to each left row's owner, heavy rows merged there ---
+        extra = []
+        for k, (ish, pos) in zip(lkey, ml):
+            hmin = cmin.to(k.device)[pos]
+            h_has = ish & (hmin != KEY_MAX)
+            tgt = torch.where(ish, torch.arange(nl, device=k.device),
+                              _dropped(nl, nl, k.device))
+            extra.append((tgt, [torch.where(h_has, hmin, -1), h_has]))
+        ovf_b, (rid, has) = _route_back(xlr, [rids, hass], [-1, False], nl,
+                                        capb, extra)
+        return (psum(ovf_l)[0], psum(ovf_r)[0], ovf_b, rid, has)
+
+    capb_est = cap_b if cap_b is not None else cap_l
+    _a2a = n_dev * (n_dev - 1) * \
+        ((8 + 4) * cap_l + 16 * cap_r + (4 + 8 + 1) * capb_est)
+    _cand = 2 * n_dev * (n_dev - 1) * KC * 8
+    return _counted(kernel, lambda *a: _a2a + _cand)
+
+
+def dist_asof_probe(mesh: Mesh):
+    """Distributed asof join as a ring probe: left rows never move, each
+    shard sorts its own right shard by (key << 31 | time, the payload's
+    order bits) once, and the sorted shards rotate around the ring in
+    n_shards steps (the reference's ppermute j -> j + 1: shard d takes
+    shard d - 1's). Each step binary-searches the shard's left probes
+    into the visiting right shard and keeps a running lexicographic max
+    of (packed key, payload bits). No key-routed exchange, so a hot key
+    costs what a uniform one does.
+
+    fn(lkey, lts, rkey, rts, rval), all per-shard lists (keys >= 0 real,
+    -1 padding; times below 2^31) -> per shard (value, NaN where none;
+    has match), in the left order. Equal (key, time) rows resolve to
+    the highest payload (with row-id payloads, the last by position)."""
+    n_dev = mesh.n
+
+    def kernel(lkey, lts, rkey, rts, rval):
+        srk, svs, lpk = [], [], []
+        for lk, lt, rk, rt_, rv in zip(lkey, lts, rkey, rts, rval):
+            rpk = torch.where(rk >= 0, (rk << 31) | rt_, KEY_MAX)
+            (a, b), _ = sort_lex([rpk, f64_order(rv)])
+            srk.append(a)
+            svs.append(b)
+            lpk.append((lk.clamp(min=0) << 31) | lt)
+        bpk = [torch.full_like(x, -1) for x in lpk]
+        bvs = [torch.full_like(x, I64_MIN) for x in lpk]
+        for step in range(n_dev):
+            for d, (lk, q) in enumerate(zip(lkey, lpk)):
+                sk, sv = srk[d], svs[d]
+                ix = torch.searchsorted(sk, q, right=True) - 1
+                ixc = ix.clamp(0, int(sk.shape[0]) - 1)
+                ok = (ix >= 0) & ((sk[ixc] >> 31) == lk) & (lk >= 0)
+                cpk = torch.where(ok, sk[ixc], -1)
+                cvs = torch.where(ok, sv[ixc], I64_MIN)
+                better = (cpk > bpk[d]) | ((cpk == bpk[d]) & (cvs > bvs[d]))
+                bpk[d] = torch.where(better, cpk, bpk[d])
+                bvs[d] = torch.where(better, cvs, bvs[d])
+            if step < n_dev - 1:
+                srk = [srk[d - 1].to(lkey[d].device) for d in range(n_dev)]
+                svs = [svs[d - 1].to(lkey[d].device) for d in range(n_dev)]
+        hits = [b >= 0 for b in bpk]
+        vals = [torch.where(h, f64_from_order(v), math.nan)
+                for h, v in zip(hits, bvs)]
+        return vals, hits
+
+    # each right row rides the whole ring: n_shards steps x 16 bytes
+    return _counted(kernel, lambda lk, lts, rk, rts, rv:
+                    n_dev * sum(int(x.numel()) for x in rk) * 16)

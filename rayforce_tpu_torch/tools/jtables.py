@@ -50,6 +50,26 @@ WJOIN_QUERIES = {
 }
 
 
+# the joins, table sorts and window joins on a device mesh
+# (RAYFORCE_MESH; chip_smoke.py's mesh-join phase): name -> (query, the
+# engine it must run there, bcast_max or None for the default). The
+# *_eq joins set bcast_max to 0, so the partitioned-build probe runs;
+# t_skew is tools/g1.py skewed_id3's copy of t (60% of its rows on one
+# id3 code), so the probe's heavy-key route runs
+MESH_JOIN_QUERIES = {
+    "ij": (JOIN_QUERIES["ij"][0], "dist-bcast-probe", None),
+    "lj": (JOIN_QUERIES["lj"][0], "dist-bcast-probe", None),
+    "ij_eq": (JOIN_QUERIES["ij"][0], "dist-eq", 0),
+    "lj_eq": (JOIN_QUERIES["lj"][0], "dist-eq", 0),
+    "ij_eq_skew": ("(inner-join [id3] t_skew r)", "dist-eq", 0),
+    "aj": (JOIN_QUERIES["aj"][0], "dist-asof", None),
+    "xasc": (JOIN_QUERIES["xasc"][0], "dist-sort", None),
+    "xdesc": (JOIN_QUERIES["xdesc"][0], "dist-sort", None),
+    "wj": (WJOIN_QUERIES["wj"], "dist-wjoin", None),
+    "wj0": (WJOIN_QUERIES["wj0"], "dist-wjoin", None),
+}
+
+
 def force_columns(tbl):
     """Every column of a join or sort result as device tensors, each lazy
     column forced (a timing must include the gathers): a typed column

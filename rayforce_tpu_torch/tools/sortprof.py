@@ -8,10 +8,12 @@ card.
         [--queries q1,q7,ij,aj,wj,wj0,...] [--no-sort] [--no-queries]
         [--mesh N]
 
-With --mesh N the grouped selects run on an N-shard mesh on the card
-(RAYFORCE_MESH=N; its shards share the card), and the queries may
-include tools.g1.MESH_QUERIES (the id3 medians, one over a copy of the
-table with a 60%-heavy id3 code).
+With --mesh N every query runs on an N-shard mesh on the card
+(RAYFORCE_MESH=N; its shards share the card): the grouped selects, and
+the joins, table sorts and window joins (ij, lj, aj, xasc, xdesc, wj,
+wj0 on the dist-bcast-probe, dist-asof, dist-sort and dist-wjoin
+engines); the queries may include tools.g1.MESH_QUERIES (the id3
+medians, one over a copy of the table with a 60%-heavy id3 code).
 
 The sort is profiled at the main path's shapes: one key word alone (the
 compaction sorts' key-only route), one key word with one and with two
@@ -150,7 +152,10 @@ def main(argv=None):
     from rayforce_tpu_torch import Runtime
     from rayforce_tpu_torch.core import symbols
     from rayforce_tpu_torch.engine import device as dev, psort
+    from rayforce_tpu_torch.engine import join as ej
     from rayforce_tpu_torch.engine import select as sel
+    from rayforce_tpu_torch.engine import sort as es
+    from rayforce_tpu_torch.engine import wjoin as ew
     from .g1 import MESH_QUERIES, QUERIES, g1_table, skewed_id3
     from .jtables import JOIN_QUERIES, WJOIN_QUERIES, force_columns, \
         join_tables
@@ -203,7 +208,12 @@ def main(argv=None):
         launches = psort.LAUNCHES["radix_sort"] - before
         _profile(name, run, args.reps, args.out)
         print(f"   sort launches per run {launches}")
-        if name not in joins:
+        if name in joins:
+            prof = es.last_profile if q.startswith("(x") else \
+                ew.last_profile if q.startswith("(window") else \
+                ej.last_profile
+            print(f"   engine {prof.get('engine')}")
+        else:
             p = sel.last_profile
             ms = p["exec_ms"] if "exec_ms" in p else \
                 p["dispatch_ms"] + p["exec+fetch_ms"]

@@ -157,3 +157,21 @@ def test_g1_skewed_id3():
         if nm != "id3":
             np.testing.assert_array_equal(b[nm], a[nm])
     assert dev.column_range(s.v[1][NAMES.index("id3")])[1] <= 99_999
+
+
+def test_constants_go_on_the_device_of_the_tensor_they_meet():
+    """A numpy-scalar operand is made on the device of the tensor it
+    meets (a mesh shard may sit on another device than the engine's),
+    here the meta device; only a column-free expression, which meets no
+    tensor, takes the engine's device."""
+    from rayforce_tpu_torch.engine import exprc
+    x = torch.empty(4, dtype=torch.int32, device="meta")
+    a, b = exprc._common(x, np.int64(3))
+    assert (a.device.type, b.device.type) == ("meta", "meta")
+    assert a.dtype == b.dtype == torch.int64
+    b, a = exprc._common(np.float64(2.5), x)
+    assert (a.device.type, b.device.type) == ("meta", "meta")
+    assert a.dtype == b.dtype == torch.float64
+    assert exprc._isnull(np.int64(T.NULL_I64), T.I64, x.device).device.type \
+        == "meta"
+    assert exprc._tensor(np.int64(1), torch.int64).device == dev.device()

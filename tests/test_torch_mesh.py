@@ -360,18 +360,21 @@ def test_mesh_of_one_and_of_eight_agree(wide_tables):
 
 
 def test_join_under_a_mesh_runs_one_device():
-    """Joins are not on the mesh yet: under RAYFORCE_MESH they run the
-    single-device engine, with the host's answer."""
+    """A join with no key to partition by (an asof join on the time
+    alone) runs the single-device engine under RAYFORCE_MESH, with the
+    host's answer; keyed joins take the mesh (tests/
+    test_torch_mesh_join.py)."""
     rng = np.random.default_rng(3)
-    rrt, prt = _runtimes({"k": (rng.integers(0, 50, 400).astype(np.int64),
-                                "I64"),
+    rrt, prt = _runtimes({"ts": (np.sort(rng.integers(0, 10**6, 400))
+                                 .astype(np.int64), "I64"),
                           "a": (rng.uniform(0, 1, 400), "F64")})
-    _rrt2, prt2 = _runtimes({"k": (np.arange(40, dtype=np.int64), "I64"),
+    _rrt2, prt2 = _runtimes({"ts": (np.sort(rng.integers(0, 10**6, 40))
+                                    .astype(np.int64), "I64"),
                              "b": (rng.uniform(0, 1, 40), "F64")},
                             name="r")
     prt.interp.globals[symbols.intern("r")] = \
         prt2.interp.globals[symbols.intern("r")]
-    q = "(left-join [k] t r)"
+    q = "(asof-join [ts] t r)"
     with mesh_env(8):
         ejoin.last_profile.clear()
         p = fmt(prt.eval_str(q))
