@@ -130,13 +130,30 @@ Phases, each reported on its own line:
              column forced and the card synchronised, the single-device
              median, the engine, exchanged bytes and kernel calls, the
              sort launches and the peak device memory;
-10. entry    the flagship step (rayforce_tpu_torch/entry.py) on the card
+10. multi-  the 8-shard mesh of phases 8 and 9 over 2 processes
+    proc     (tools/multiproc_worker.py, `launch`; RAYFORCE_COORDINATOR,
+             engine/device.py `mesh`), 4 shards each, over the
+             torch.distributed backend engine/device.py `backend_for`
+             names (gloo where the ranks share a card, its collectives
+             staged through pinned host memory; NCCL with a card a
+             rank). Each rank makes the G1 and join tables of phases 8
+             and 9 from the same seeds on the card and runs every query
+             of both phases. Each must run the one-process mesh's
+             engine, note its exchanged bytes, launch the CUDA sort on
+             every rank and give the one-process mesh's answer bit for
+             bit (a digest of every column) on every rank and rerun.
+             One [multiproc_ms] line per query: the slower rank's median
+             of 2 warm wall runs (every lazy column forced, the card
+             synchronised) beside phase 8's or 9's, the exchanged bytes,
+             the calls, bytes and wall ms the rank handed to
+             torch.distributed, the launches and peak memory per rank;
+11. entry    the flagship step (rayforce_tpu_torch/entry.py) on the card
              against the same step on the CPU;
-11. report   one JSON line with every kernel's numbers (the radix sort's
+12. report   one JSON line with every kernel's numbers (the radix sort's
              launches count the main path's, the joins', the window
-             joins', the parted selects', the mesh selects' and the mesh
-             joins' runs), then the result line {"ok": true, "device":
-             {...}}.
+             joins', the parted selects', the mesh selects', the mesh
+             joins' and the two ranks' runs), then the result line
+             {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the result line. Without a
 CUDA device, or without the rest of the repository beside it, it exits
@@ -591,7 +608,9 @@ def mesh_path(rows, device, single):
     single-device card result (`single`: phase 4's host copies, held
     against the host path there; the two medians' are taken and held
     against the host path here) and a second mesh run. Returns (launches
-    of the checked runs, launches per query)."""
+    of the checked runs, launches per query, and per query the mesh
+    answer's digest, exchanged bytes, engine and warm wall ms for phase
+    10)."""
     import torch
     from rayforce_tpu_torch import Runtime
     from rayforce_tpu_torch.core import symbols
@@ -601,6 +620,8 @@ def mesh_path(rows, device, single):
     from rayforce_tpu_torch.parallel import dist
     from rayforce_tpu_torch.tools.g1 import MESH_QUERIES, QUERIES, \
         g1_table, skewed_id3
+    from rayforce_tpu_torch.tools.jtables import force_columns
+    from rayforce_tpu_torch.tools.multiproc_worker import digest
 
     def no_fallback(e):
         raise AssertionError(f"device path fell back to the host: {e!r}")
@@ -670,23 +691,34 @@ def mesh_path(rows, device, single):
         torch.cuda.synchronize()
         launches = psort.LAUNCHES["radix_sort"]
 
+        answers = {}
         for name, q in queries.items():
             groups = same_table(results[name], want[name], name)
-            runs = []
+            runs, walls = [], []
             for i in range(3):
+                t0 = time.perf_counter()
                 r = rt.eval_str(q)
+                force_columns(r)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
                 if i == 0:
                     same_bits(results[name], r, name)
                 runs.append(_exec_ms(sel.last_profile))
+            answers[name] = {"digest": digest(results[name]),
+                             "engine": MESH_ENGINES[name],
+                             "exchanged_bytes":
+                             stats[name]["exchanged_bytes"],
+                             "ms": statistics.median(walls)}
             phase("mesh_ms", query=name, engine=MESH_ENGINES[name],
                   shards=MESH_SHARDS, groups=groups,
                   median_ms=statistics.median(runs), runs=runs,
+                  wall_ms=statistics.median(walls),
                   exchanged_bytes=stats[name]["exchanged_bytes"],
                   kernel_calls=stats[name]["kernel_calls"],
                   launches=per_query[name], peak_mb=round(peak[name], 1),
                   equals_single_device=True, bit_identical=True,
                   cards=len(set(m.devices)))
-        return launches, per_query
+        return launches, per_query, answers
     finally:
         os.environ.pop("RAYFORCE_MESH", None)
         dev._mesh_state.update({"mesh": None, "checked": False})
@@ -1031,7 +1063,8 @@ def mesh_join_path(rows, device):
     against the same query with the mesh off (the single-device card
     answer, which phases 5 and 6 hold against the host path) and a
     second mesh run. Returns (launches of the checked mesh runs, the
-    launches per query)."""
+    launches per query, and per query the mesh answer's digest,
+    exchanged bytes, engine and warm wall ms for phase 10)."""
     import torch
     from rayforce_tpu_torch import Runtime
     from rayforce_tpu_torch.core import symbols
@@ -1046,6 +1079,7 @@ def mesh_join_path(rows, device):
     from rayforce_tpu_torch.tools.g1 import skewed_id3
     from rayforce_tpu_torch.tools.jtables import MESH_JOIN_QUERIES, \
         force_columns, join_tables
+    from rayforce_tpu_torch.tools.multiproc_worker import digest
 
     def no_fallback(e):
         raise AssertionError(f"device path fell back to the host: {e!r}")
@@ -1100,7 +1134,7 @@ def mesh_join_path(rows, device):
             ew.last_profile if q.startswith("(window") else ej.last_profile
         return prof.get("engine")
 
-    launches, per_query = 0, {}
+    launches, per_query, answers = 0, {}, {}
     saved_bmax = dev._cfg["bcast_max"]
     try:
         for name, (q, want_engine, bmax) in MESH_JOIN_QUERIES.items():
@@ -1183,11 +1217,107 @@ def mesh_join_path(rows, device):
                   max_abs_err=json.dumps(errs, separators=(",", ":")),
                   equals_single_device=True, bit_identical=True,
                   cards=cards)
+            answers["mj_" + name] = {
+                "digest": digest(out), "engine": got,
+                "exchanged_bytes": stats["exchanged_bytes"],
+                "ms": statistics.median(runs)}
             del out, lanes
-        return launches, per_query
+        return launches, per_query, answers
     finally:
         dev._cfg["bcast_max"] = saved_bmax
         set_mesh(0)
+
+
+MP_RANKS = 2
+
+
+def multiproc_path(rows, answers):
+    """Phase 10: MP_RANKS processes (rayforce_tpu_torch/tools/
+    multiproc_worker.py, started by its `launch`) form one MESH_SHARDS-
+    shard mesh on this host's cards over torch.distributed, with the
+    backend `engine/device.py` `backend_for` names; each makes the G1 and
+    join tables at `rows` rows from phase 8's and 9's seeds and runs every
+    query of `answers` (phase 8's and 9's one-process mesh answers) once
+    and twice more timed. Each query must run the one-process mesh's
+    engine, note its exchanged bytes, launch the CUDA sort on every rank
+    and give its answer bit for bit (the digest of every column) on every
+    rank and every run. Returns (the ranks' sort launches of the checked
+    runs, per query)."""
+    import torch
+    from rayforce_tpu_torch.engine.device import backend_for
+    from rayforce_tpu_torch.tools import multiproc_worker as W
+
+    backend = backend_for(torch.device("cuda"), MP_RANKS)
+    t0 = time.perf_counter()
+    outs = W.launch(MP_RANKS, MESH_SHARDS,
+                    ["--rows", str(rows), "--reps", "2", "--timeout", "180",
+                     "--queries", ",".join(answers)], timeout=480)
+    seconds = round(time.perf_counter() - t0, 3)
+    recs = []
+    for rank, (out, _err) in enumerate(outs):
+        if not out.rstrip().endswith("MULTIPROC_OK"):
+            raise AssertionError(f"rank {rank} did not finish:\n{out[-2000:]}")
+        recs.append(W.records(out))
+    per = MESH_SHARDS // MP_RANKS
+    for rank, r in enumerate(recs):
+        head = r[0]
+        if (head["world"], head["rank"], head["shards"], head["local"],
+                head["backend"]) != (MP_RANKS, rank, MESH_SHARDS,
+                                     [rank * per, (rank + 1) * per],
+                                     backend):
+            raise AssertionError(f"rank {rank}: mesh {head}")
+    colls = [next(x["collectives"] for x in r if "collectives" in x)
+             for r in recs]
+    if any(c != colls[0] for c in colls):
+        raise AssertionError("the ranks' collectives differ")
+    phase("multiproc", ranks=MP_RANKS, shards=MESH_SHARDS, backend=backend,
+          devices=json.dumps([r[0]["device"] for r in recs]),
+          tables_s=json.dumps([round(next(x["tables_s"] for x in r
+                                          if "tables_s" in x), 3)
+                               for r in recs]),
+          seconds=seconds)
+    queries = [{x["query"]: x for x in r if "query" in x} for r in recs]
+    launches, per_query, faults = 0, {}, []
+    for name, want in answers.items():
+        got = [q[name] for q in queries]
+        for rank, g in enumerate(got):
+            if g["engine"] != want["engine"]:
+                faults.append(f"{name}: rank {rank} ran {g['engine']}, not "
+                              f"{want['engine']}")
+            if g["digest"] != want["digest"]:
+                faults.append(f"{name}: rank {rank}'s answer is not the "
+                              "one-process mesh's, bit for bit")
+            if not g["reruns_equal"]:
+                faults.append(f"{name}: rank {rank}'s reruns differ")
+            if g["exchanged_bytes"] != want["exchanged_bytes"]:
+                faults.append(f"{name}: rank {rank} noted "
+                              f"{g['exchanged_bytes']} bytes, not "
+                              f"{want['exchanged_bytes']}")
+            if g["launches"] <= 0:
+                faults.append(f"{name}: rank {rank} never launched the "
+                              "CUDA sort")
+        per_query[name] = sum(g["launches"] for g in got)
+        launches += per_query[name]
+        mesh_ms = max(statistics.median(g["ms"]) for g in got)
+        wire_ms = max(g["wire"]["seconds"] for g in got) * 1e3
+        phase("multiproc_ms", query=name, engine=want["engine"],
+              ranks=MP_RANKS, shards=MESH_SHARDS, backend=backend,
+              mesh_ms=round(mesh_ms, 3),
+              one_process_mesh_ms=round(want["ms"], 3),
+              runs=json.dumps([[round(x, 3) for x in g["ms"]]
+                               for g in got]),
+              exchanged_bytes=want["exchanged_bytes"],
+              wire_calls=got[0]["wire"]["calls"],
+              wire_bytes=int(got[0]["wire"]["bytes"]),
+              wire_ms=round(wire_ms, 3),
+              launches=json.dumps([g["launches"] for g in got]),
+              peak_mb=json.dumps([round(g["peak_mb"], 1) for g in got]),
+              equals_one_process_mesh=all(g["digest"] == want["digest"]
+                                          for g in got),
+              bit_identical=all(g["reruns_equal"] for g in got))
+    if faults:
+        raise AssertionError("\n".join(faults))
+    return launches, per_query
 
 
 PARTS = 10
@@ -1484,23 +1614,31 @@ def main():
 
     # 8. the grouped selects over an 8-shard mesh on the card
     torch.cuda.empty_cache()
-    mesh_launches, mesh_per_query = mesh_path(ROWS, "cuda", single)
+    mesh_launches, mesh_per_query, answers = mesh_path(ROWS, "cuda",
+                                                       single)
     phase("mesh_path", launches=mesh_launches, shards=MESH_SHARDS,
           per_query=json.dumps(mesh_per_query, separators=(",", ":")))
     del single
     torch.cuda.empty_cache()
 
     # 9. the joins, table sorts and window joins over the 8-shard mesh
-    mj_launches, mj_per_query = mesh_join_path(ROWS, "cuda")
+    mj_launches, mj_per_query, mj_answers = mesh_join_path(ROWS, "cuda")
     phase("mesh_join_path", launches=mj_launches, shards=MESH_SHARDS,
           per_query=json.dumps(mj_per_query, separators=(",", ":")))
+    answers.update(mj_answers)
     torch.cuda.empty_cache()
 
-    # 10. the flagship step
+    # 10. the same mesh over MP_RANKS processes
+    mp_launches, mp_per_query = multiproc_path(ROWS, answers)
+    phase("multiproc_path", launches=mp_launches, ranks=MP_RANKS,
+          shards=MESH_SHARDS,
+          per_query=json.dumps(mp_per_query, separators=(",", ":")))
+
+    # 11. the flagship step
     lanes = check_entry(torch)
     phase("entry", lanes=lanes, card_equals_cpu=True)
 
-    # 11. report
+    # 12. report
     main = next(r for r in times if r["shape"] == "sortagg_2w")
     kernels = [{
         "name": "radix_sort",
@@ -1510,7 +1648,7 @@ def main():
                     "rayforce_tpu/engine/psort.py:284 "
                     "(_window_pass_kernel)",
         "launches": main_launches + join_launches + wj_launches +
-        parted_launches + mesh_launches + mj_launches,
+        parted_launches + mesh_launches + mj_launches + mp_launches,
         "max_abs_err": err,
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],

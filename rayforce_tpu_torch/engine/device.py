@@ -11,7 +11,8 @@ and which device the engine runs on.
 - Column stats (min, max, has_null, qscale) are computed for a whole
   table at once and fetched in one transfer.
 - The mesh (`mesh`, `dev_col_sharded`): with RAYFORCE_MESH=N one
-  process drives N row shards of each table (parallel/dist.py).
+  process drives N row shards of each table (parallel/dist.py), or,
+  under RAYFORCE_COORDINATOR, each of P processes drives N / P of them.
 - Config: the row threshold for the device path, the dense
   code-space cap (the analogue of the reference's perfect-hash range
   guard, core/index.c:2308-2424), and on a mesh the largest right side
@@ -57,6 +58,7 @@ _cfg = {
     "threshold": 1 << 17,  # rows below this stay on the host numpy path
     "dense_max": 1 << 20,  # max dense group-code space (H*W <= ~1M)
     "bcast_max": 1 << 22,  # a mesh join replicates a right side this big
+    "dist_timeout": 60.0,  # seconds a multi-process mesh waits for a peer
 }
 
 
@@ -102,32 +104,98 @@ def should_use(n_rows: int) -> bool:
 _mesh_state = {"mesh": None, "checked": False}
 
 
+def _procs():
+    """(world, rank) of a multi-process mesh from RAYFORCE_NUM_PROCS and
+    RAYFORCE_PROC_ID."""
+    try:
+        world = int(os.environ["RAYFORCE_NUM_PROCS"])
+        rank = int(os.environ["RAYFORCE_PROC_ID"])
+    except (KeyError, ValueError) as e:
+        raise DeviceError("RAYFORCE_COORDINATOR needs RAYFORCE_NUM_PROCS "
+                          "and RAYFORCE_PROC_ID as integers") from e
+    if world < 1 or not 0 <= rank < world:
+        raise DeviceError(f"RAYFORCE_PROC_ID={rank} is not a rank of "
+                          f"RAYFORCE_NUM_PROCS={world} processes")
+    return world, rank
+
+
+def backend_for(d, world) -> str:
+    """The torch.distributed backend of a multi-process mesh on device
+    `d`: gloo on CPU torch; NCCL where every rank has a card of its own
+    (rank r on card r of at least `world` visible cards); gloo where
+    ranks share a card, which NCCL refuses, its collectives staging the
+    CUDA tensors through pinned host memory (parallel/dist.py)."""
+    if d.type == "cuda" and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def _start_procs(coord, world, rank, backend):
+    """Join the process group once (its rendezvous at `coord`, host:port),
+    waiting at most `dist_timeout` seconds for a peer."""
+    import datetime
+    import torch.distributed as td
+    if td.is_initialized():
+        if (td.get_world_size(), td.get_rank(), td.get_backend()) != \
+                (world, rank, backend):
+            raise DeviceError(
+                "this process is already rank "
+                f"{td.get_rank()} of {td.get_world_size()} "
+                f"({td.get_backend()}), not {rank} of {world} ({backend})")
+        return
+    try:
+        td.init_process_group(
+            backend, init_method=f"tcp://{coord}", world_size=world,
+            rank=rank,
+            timeout=datetime.timedelta(seconds=_cfg["dist_timeout"]))
+    except (RuntimeError, ValueError) as e:
+        raise DeviceError(f"rank {rank} of {world} could not join the "
+                          f"mesh at {coord} ({backend}): {e}") from e
+
+
 def mesh():
     """The device mesh when mesh mode is on (RAYFORCE_MESH=N, or `auto`
     for one shard per visible card), else None. One process drives its
     N shards, spread over the visible cards from the engine's (parallel/
     dist.py make_mesh): 8 shards share one card, or CPU torch. Grouped
     selects, joins, table sorts and window joins then run as per-shard
-    stages with their collectives (parallel/dist.py)."""
+    stages with their collectives (parallel/dist.py).
+
+    Under RAYFORCE_COORDINATOR=host:port, with RAYFORCE_NUM_PROCS=P and
+    RAYFORCE_PROC_ID=r, the N shards span P processes (N a multiple of
+    P; `auto`: P times the cards a process sees, or P on CPU torch):
+    rank r drives shards [r N/P, (r + 1) N/P), all on its card (card
+    r % count) or CPU torch, over the backend `backend_for` names."""
     if _mesh_state["mesh"] is not None and \
             _mesh_state.get("device") != device():
         _mesh_state["checked"] = False     # the engine moved devices
     if not _mesh_state["checked"]:
         spec = os.environ.get("RAYFORCE_MESH")
-        if spec and os.environ.get("RAYFORCE_COORDINATOR"):
-            raise DeviceError(
-                "RAYFORCE_COORDINATOR asks for a multi-process mesh, which "
-                "is not ported yet; unset it to run the one-process mesh")
+        coord = os.environ.get("RAYFORCE_COORDINATOR")
         d = m = None
         if spec:
             d = device()
             count = torch.cuda.device_count() if d.type == "cuda" else 1
+            world, rank = _procs() if coord else (1, 0)
             try:
-                n = count if spec == "auto" else int(spec)
+                n = world * count if spec == "auto" else int(spec)
             except ValueError:
                 n = 0
-            if n > 1:
-                from ..parallel.dist import make_mesh
+            from ..parallel.dist import make_mesh
+            if world > 1:
+                if n % world:
+                    raise DeviceError(
+                        f"RAYFORCE_MESH={n} shards do not split over "
+                        f"{world} processes")
+                backend = backend_for(d, world)
+                shard_dev = d
+                if d.type == "cuda":
+                    torch.cuda.set_device(rank % count)
+                    shard_dev = torch.device("cuda", rank % count)
+                _start_procs(coord, world, rank, backend)
+                m = make_mesh(n, device=shard_dev, world=world, rank=rank,
+                              backend=backend)
+            elif n > 1:
                 m = make_mesh(n, device=d)
         _mesh_state.update({"mesh": m, "checked": True, "device": d})
     return _mesh_state["mesh"]
@@ -164,13 +232,20 @@ def dev_col(col: Obj) -> torch.Tensor:
 def dev_col_sharded(col: Obj, m) -> list:
     """Row-sharded device copy of a column for mesh `m`: one padded row
     slice per shard (the pipelines mask pad rows by global row id),
-    cached on the Obj for that mesh only."""
+    cached on the Obj for that mesh only. Under a multi-process mesh
+    only this process's shards are placed, sliced from the host column
+    (every process holds the whole table on the host) unless the column
+    is on the device already."""
     if isinstance(col.meta, dict):
         hit = col.meta.get("dev_sh")
         if hit is not None and hit[0] == m.key:
             return hit[1]
     from ..parallel.dist import shard_rows
-    shards, _pad = shard_rows(m, dev_col(col))
+    on_dev = col.pending() is not None or (
+        isinstance(col.meta, dict) and "dev" in col.meta)
+    src = dev_col(col) if m.world == 1 or on_dev else \
+        np.ascontiguousarray(to_np(col))
+    shards, _pad = shard_rows(m, src)
     if not isinstance(col.meta, dict):
         col.meta = {}
     col.meta["dev_sh"] = (m.key, shards)

@@ -270,10 +270,11 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs, mesh):
         return builder
 
     def shard_inputs(builder, cols):
-        """The builder's outputs over every shard, as per-shard lists
-        (codes first, then each lane)."""
-        outs = [builder(me, [c[me] for c in cols]) for me in range(n_dev)]
-        return [[o[j] for o in outs] for j in range(len(outs[0]))]
+        """The builder's outputs over this process's shards, as per-shard
+        lists (codes first, then each lane)."""
+        outs = [builder(me, [c[me] for c in cols]) if me in mesh.local
+                else None for me in range(n_dev)]
+        return [dist.pick(outs, j) for j in range(len(dist.here(outs)))]
 
     code_builder = make_builder(lane_exprs, lane_maps)
     # the per-shard ownership bound ceil(n_codes / n) tightens the merge

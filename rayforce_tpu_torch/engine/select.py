@@ -296,7 +296,17 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
                 raise
             return None, None
 
-    # per-column requirements (deduped by compiled-expression identity)
+    # per-column requirements (deduped by compiled-expression identity),
+    # each taken in the order of its first aggregate: the same order in
+    # every process, as a multi-process mesh combines the lanes by
+    # position
+    first_use: dict = {}
+    for i, a in enumerate(aggs):
+        first_use.setdefault(id(a.inner), i)
+
+    def in_order(cids):
+        return sorted(cids, key=first_use.__getitem__)
+
     need_nullcnt = set()
     need_limbs = {}        # cid -> (lo, hi) stats or (None, None)
     need_isumb = {}        # cid -> (lo, hi): exact sums, all < 2^53
@@ -393,15 +403,15 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
 
         # exact limb sums of the full-width integer columns
         tasks = []
-        for cid in sorted(need_limbs):
+        for cid in in_order(need_limbs):
             lo, hi = need_limbs[cid]
             nv = T.NULL_BY_TYPE.get(rtypes[cid])
             limbs, _nw, _b = G.int_limb_weights(arrs[cid], nv, lo, hi)
             tasks += [(f"limb{cid}_{i}", lb) for i, lb in enumerate(limbs)]
         sums = [(f"nullcnt{cid}",
                  _null_mask(arrs[cid], rtypes[cid]).to(I64))
-                for cid in sorted(need_nullcnt)]
-        for cid in sorted(need_isumb):
+                for cid in in_order(need_nullcnt)]
+        for cid in in_order(need_isumb):
             z = arrs[cid].to(I64)
             nv = T.NULL_BY_TYPE.get(rtypes[cid])
             if nv is not None:
@@ -409,11 +419,11 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
             sums.append((f"isum{cid}", z))
         sums += [(f"fsum{cid}",
                   torch.where(torch.isnan(arrs[cid]), 0.0, arrs[cid]))
-                 for cid in sorted(need_fsum)]
+                 for cid in in_order(need_fsum)]
         mins = [(f"min{cid}", _minmax_payload(arrs[cid], rtypes[cid], True))
-                for cid in sorted(need_min)]
+                for cid in in_order(need_min)]
         maxs = [(f"max{cid}", _minmax_payload(arrs[cid], rtypes[cid], False))
-                for cid in sorted(need_max)]
+                for cid in in_order(need_max)]
         return codes, arrs, rtypes, {"task": tasks, "sum": sums,
                                      "min": mins, "max": maxs}
 
@@ -444,7 +454,7 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
             cnt64 = counts.to(I64)
             m_starts = torch.cat([cnt64.new_zeros(1),
                                   torch.cumsum(cnt64, 0)[:-1]])
-        for cid in sorted(need_med):
+        for cid in in_order(need_med):
             arr = arrs[cid]
             # nulls sort last; an i32-wide column keeps a one-word key
             if rtypes[cid] == T.F64:
@@ -472,16 +482,18 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
         """The mesh's dense lanes: every shard's inputs through
         dist_select_small, combined across shards in shard order."""
         from ..parallel import dist
+        # this process's shards (all of them, but for a multi-process
+        # mesh)
         ins = [inputs([c[s] for c in cols], rows_local, s * rows_local)
-               for s in range(n_dev)]
-        lanes = [x[3] for x in ins]
-        names = {k: [nm for nm, _ in v] for k, v in lanes[0].items()}
+               if s in m.local else None for s in range(n_dev)]
+        lanes = dist.pick(ins, 3)
+        names = {k: [nm for nm, _ in v] for k, v in dist.here(lanes).items()}
         kern = dist.dist_select_small(
             m, NC, rows_local, len(names["sum"]), len(names["min"]),
             len(names["max"]), len(names["task"])).inner
         # the kernel's lanes: tasks, sums, mins, maxs, each per shard
-        out = kern([x[0] for x in ins],
-                   *[[ln[k][i][1] for ln in lanes]
+        out = kern(dist.pick(ins, 0),
+                   *[dist.smap(lambda _s, ln: ln[k][i][1], lanes)
                      for k in ("task",) + _SCANNED
                      for i in range(len(names[k]))])
         part = {nm: out[f"{k}{i}"] for k, v in names.items()

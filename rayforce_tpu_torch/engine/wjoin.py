@@ -290,8 +290,11 @@ def _k_dev(sv, li, ri, ok, rtype):
     empty windows yield 0Nf."""
     nn = _null_mask_t(sv, rtype)
     v = sv.to(F64)
-    vz = torch.where(nn, 0.0, v)
-    c0 = vz.sum() / (~nn).sum().clamp(min=1)
+    # the shift and the floor below are sums in the fixed order of the
+    # prefix scan: a whole-vector sum on CPU torch adds in the order of
+    # its thread split, so its last bits follow the thread count
+    c0 = _prefix_f64(torch.where(nn, 0.0, v))[-1] / \
+        (~nn).sum().clamp(min=1)
     x = torch.where(nn, 0.0, v - c0)
     cs = _prefix_f64(x)
     cs2 = _prefix_f64(x * x)
@@ -306,7 +309,7 @@ def _k_dev(sv, li, ri, ok, rtype):
     # by eps * (the global second moment); without it a constant
     # window's true variance (0) surfaces as ~1e-5 noise that fmt
     # prints in scientific notation where the host path prints 0.00
-    floor = (x * x).sum() * (2.0 ** -48) / safe
+    floor = cs2[-1] * (2.0 ** -48) / safe
     var = torch.where(var <= floor, 0.0, var)
     out = torch.sqrt(torch.clamp(var, min=0.0))
     return torch.where(ok & (c > 0), out, math.nan)
@@ -518,25 +521,30 @@ def _mesh_wjoin_kernel(mesh, n_codes, tp, cap_l, cap_r, cap_b, nl_total,
                 for op, lane, rtype in aggs_spec]
 
     def kernel(lcode, lo, hi, rcode, rts, *rpays):
-        nl = int(lcode[0].shape[0])
-        lrow = [me * nl + torch.arange(nl, device=c.device)
-                for me, c in enumerate(lcode)]
+        smap = dist.smap
+        nl = int(dist.here(lcode).shape[0])
+        lrow = smap(lambda me, c: me * nl + torch.arange(nl, device=c.device),
+                    lcode)
         xl, ovf_l = dist._shuffle(
-            [c % n_dev for c in lcode], [r < nl_total for r in lrow],
-            [[(c.to(I32), -1), (a, 0), (b, 0), (r.to(I32), -1)]
-             for c, a, b, r in zip(lcode, lo, hi, lrow)], n_dev, cap_l)
+            smap(lambda _i, c: c % n_dev, lcode),
+            smap(lambda _i, r: r < nl_total, lrow),
+            smap(lambda _i, c, a, b, r: [(c.to(I32), -1), (a, 0), (b, 0),
+                                         (r.to(I32), -1)],
+                 lcode, lo, hi, lrow), n_dev, cap_l)
         xr, ovf_r = dist._shuffle(
-            [c % n_dev for c in rcode], [c >= 0 for c in rcode],
-            [[(c.to(I32), -1), (t, 0)] +
-             [(p[me], fill(p[me].dtype)) for p in rpays]
-             for me, (c, t) in enumerate(zip(rcode, rts))], n_dev, cap_r)
-        lanes = [shard_lanes([x[d] for x in xl], [x[d] for x in xr])
-                 for d in range(n_dev)]
-        per_lane = [[ln[j] for ln in lanes] for j in range(len(aggs_spec))]
+            smap(lambda _i, c: c % n_dev, rcode),
+            smap(lambda _i, c: c >= 0, rcode),
+            smap(lambda me, c, t: [(c.to(I32), -1), (t, 0)] +
+                 [(p[me], fill(p[me].dtype)) for p in rpays], rcode, rts),
+            n_dev, cap_r)
+        lanes = smap(lambda d, _c: shard_lanes([x[d] for x in xl],
+                                               [x[d] for x in xr]), lcode)
+        per_lane = [dist.pick(lanes, j) for j in range(len(aggs_spec))]
         ovf_b, outs = dist._route_back(
-            xl[3], per_lane, [fill(x[0].dtype) for x in per_lane], nl,
-            cap_b)
-        return (dist.psum(ovf_l)[0], dist.psum(ovf_r)[0], ovf_b, *outs)
+            xl[3], per_lane, [fill(dist.here(x).dtype) for x in per_lane],
+            nl, cap_b)
+        return (dist.here(dist.psum(ovf_l)), dist.here(dist.psum(ovf_r)),
+                ovf_b, *outs)
 
     lane_bytes = 8 * len(aggs_spec)
     _a2a = n_dev * (n_dev - 1) * \

@@ -25,16 +25,27 @@ reductions run in the fixed shard order 0..N-1, so a rerun is bit for bit
 the same; a move between shards is `.to(device)`, a device-local copy
 where the shards share a device. A kernel whose collectives fall in the
 middle is a sequence of stages, each a loop over the shards, with the
-collective between them. A replicated result is computed once, on shard
-0's device. Every sort goes through the engine's psort entry, so on the
-card each is a launch of the CUDA radix sort.
+collective between them. A replicated result is computed on each
+process, on its first shard's device. Every sort goes through the
+engine's psort entry, so on the card each is a launch of the CUDA radix
+sort.
+
+The mesh may span P processes (engine/device.py starts them under
+RAYFORCE_COORDINATOR): each process then holds N / P contiguous shards,
+its per-shard lists hold None at the others', its stages run over its
+own shards only, and each collective is one torch.distributed call that
+crosses the process boundary. Every process computes every replicated
+value the same way, so every process takes the same capacity retries
+and gets the one-process mesh's answer bit for bit.
 """
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 import torch
+import torch.distributed as td
 
 from ..engine import groupby as G
 from ..engine.psort import f64_from_order, f64_order, sort_lex
@@ -61,6 +72,13 @@ def reset_stats():
     stats["kernel_calls"] = 0
 
 
+# what a multi-process mesh really hands to torch.distributed: calls,
+# bytes this process sends (its own blocks included) and the wall
+# seconds inside those calls, the staging copies included (a copy off
+# the card first waits for the kernels queued before it)
+wire = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+
 def _counted(fn, est):
     """Wrap a dist kernel; `est(*args) -> bytes` runs on the host at
     call time."""
@@ -76,26 +94,39 @@ def _counted(fn, est):
 # -- the mesh -----------------------------------------------------------------
 
 class Mesh:
-    """N shards along one axis; shard i runs on `devices[i]`."""
+    """N shards along one axis. One process drives them all (world 1),
+    or P processes each drive N / P of them (world P, rank r owning the
+    contiguous shards `local`, process-major as the reference's global
+    device order): `devices[i]` is shard i's device where this process
+    owns it, else None. The collectives then cross the process boundary
+    over torch.distributed's default group, whose backend is
+    `backend`."""
 
-    def __init__(self, devices, axis="d"):
-        self.devices = [torch.device(d) for d in devices]
+    def __init__(self, devices, axis="d", world=1, rank=0, backend=None):
+        n = len(devices)
+        per = n // world
+        self.world, self.rank, self.backend = world, rank, backend
+        self.local = range(rank * per, (rank + 1) * per)
+        self.devices = [torch.device(d) if i in self.local else None
+                        for i, d in enumerate(devices)]
+        self.group = None if world == 1 else td.group.WORLD
         self.axis_names = (axis,)
-        self.key = (len(self.devices),
-                    tuple(str(d) for d in self.devices))
+        self.key = (n, tuple(str(d) for d in self.devices), world, rank)
 
     @property
     def n(self) -> int:
         return len(self.devices)
 
 
-def make_mesh(n_devices=None, axis="d", device=None) -> Mesh:
+def make_mesh(n_devices=None, axis="d", device=None, world=1, rank=0,
+              backend=None) -> Mesh:
     """A mesh of n_devices shards (default: one per visible card) on
     `device`'s kind (default: the engine's device). On CUDA shard i sits
     on card (c + i) % count of the visible cards, c the engine's, so
     shard 0 is on the engine's card and 8 shards share one card or
-    spread over four; on the CPU every shard is on it. One process
-    drives every shard."""
+    spread over four; on the CPU every shard is on it. With `world` > 1
+    this process is `rank` of the process group (engine/device.py
+    starts it) and holds its N / world shards, all on `device`."""
     if device is None:
         from ..engine import device as dev
         device = dev.device()
@@ -105,8 +136,8 @@ def make_mesh(n_devices=None, axis="d", device=None) -> Mesh:
     n = int(n_devices)
     if n < 1:
         raise ValueError(f"a mesh needs at least one shard, not {n}")
-    if d.type != "cuda":
-        return Mesh([d] * n, axis)
+    if world > 1 or d.type != "cuda":
+        return Mesh([d] * n, axis, world, rank, backend)
     count = torch.cuda.device_count()
     c = torch.cuda.current_device() if d.index is None else d.index
     return Mesh([torch.device("cuda", (c + i) % count) for i in range(n)],
@@ -115,8 +146,8 @@ def make_mesh(n_devices=None, axis="d", device=None) -> Mesh:
 
 def shard_rows(mesh: Mesh, arr, fill=0):
     """Row-shard a host array or tensor over the mesh, padded with
-    `fill` to a multiple of the shard count. Returns (per-shard tensors,
-    pad)."""
+    `fill` to a multiple of the shard count; only this process's shards
+    are placed (None at the others). Returns (per-shard tensors, pad)."""
     t = arr if isinstance(arr, torch.Tensor) else \
         torch.from_numpy(np.ascontiguousarray(arr))
     n = mesh.n
@@ -124,19 +155,118 @@ def shard_rows(mesh: Mesh, arr, fill=0):
     if pad:
         t = torch.cat([t, t.new_full((pad,), fill)])
     per = int(t.shape[0]) // n
-    return [t[i * per:(i + 1) * per].to(d)
+    return [None if d is None else t[i * per:(i + 1) * per].to(d)
             for i, d in enumerate(mesh.devices)], pad
 
 
+# -- per-shard lists ------------------------------------------------------------
+#
+# A per-shard list has one entry per shard of the mesh; under a
+# multi-process mesh the entries of the shards another process owns are
+# None. A stage runs over this process's entries (`smap`), a replicated
+# result is read from any of them (`here`).
+
+def owned(xs):
+    """The shard indices whose entries this process holds."""
+    return [i for i, x in enumerate(xs) if x is not None]
+
+
+def here(xs):
+    """A replicated per-shard list's value on this process."""
+    return next(x for x in xs if x is not None)
+
+
+def smap(fn, *lists):
+    """fn(shard index, each list's entry) over this process's shards;
+    None at the others."""
+    return [None if xs[0] is None else fn(me, *xs)
+            for me, xs in enumerate(zip(*lists))]
+
+
+def pick(xs, j):
+    """Entry j of each shard's tuple, as a per-shard list."""
+    return [None if x is None else x[j] for x in xs]
+
+
 # -- collectives over per-shard lists -----------------------------------------
+#
+# With every shard in this process (world 1) a collective is a loop over
+# the list. Across processes each is one torch.distributed call over the
+# bytes of this process's shards, stacked: a gather or an
+# all_to_all_single (with one nonzero split each way for the ring). Reductions still run in shard order
+# 0..N-1 on every process, over every shard's partial, so the result is
+# the one-process mesh's bit for bit. Under gloo a CUDA tensor goes
+# through a pinned host buffer; under NCCL it stays on the card.
+
+def _wire_call(what, fn, send, recv):
+    """Run one torch.distributed call from `send` into `recv` (uint8,
+    on one device), staging CUDA buffers through pinned host memory
+    unless the backend is NCCL. Returns `recv` on `send`'s device. A
+    failed call raises DeviceError: a mesh collective never falls back."""
+    from ..engine.device import DeviceError
+    t0 = time.perf_counter()
+    dv = send.device
+    staged = dv.type == "cuda" and td.get_backend() != "nccl"
+    if staged:
+        s = torch.empty(send.shape, dtype=send.dtype, pin_memory=True)
+        s.copy_(send)
+        r = torch.empty(recv.shape, dtype=recv.dtype, pin_memory=True)
+    else:
+        s, r = send, recv
+    try:
+        fn(r, s)
+    except RuntimeError as e:
+        raise DeviceError(f"mesh collective {what} failed across "
+                          f"processes: {e}") from e
+    out = r.to(dv) if staged else r
+    wire["calls"] += 1
+    wire["bytes"] += int(send.numel())
+    wire["seconds"] += time.perf_counter() - t0
+    return out
+
+
+def _bytes_of(t, rows):
+    """t ((rows, ...)) as a (rows, bytes) uint8 view."""
+    return t.contiguous().reshape(rows, -1).view(torch.uint8) \
+        if t.numel() else torch.empty((rows, 0), dtype=torch.uint8,
+                                      device=t.device)
+
+
+def _from_bytes(b, like, rows):
+    """Inverse of `_bytes_of`: (rows, *like.shape) of like's dtype."""
+    return b.contiguous().view(like.dtype).reshape((rows,) +
+                                                   tuple(like.shape))
+
+
+def _gather_shards(xs):
+    """Every shard's tensor (all of one shape and dtype), as a list in
+    shard order, on this process's first shard's device: one gather of
+    this process's stacked shards."""
+    own = owned(xs)
+    n = len(xs)
+    mine = torch.stack([xs[i] for i in own])
+    b = _bytes_of(mine, len(own))
+    recv = b.new_empty((n, int(b.shape[1])))
+    gather = getattr(td, "all_gather_single", None) or \
+        td.all_gather_into_tensor
+    out = _from_bytes(_wire_call("gather", gather, b, recv), xs[own[0]], n)
+    return list(out.unbind(0))
+
+
+def _all_shards(xs):
+    """Every shard's tensor in shard order: the list itself in one
+    process, else gathered."""
+    return _gather_shards(xs) if any(x is None for x in xs) else xs
+
 
 def _replicate(x, like):
-    return [x.to(y.device) for y in like]
+    return [None if y is None else x.to(y.device) for y in like]
 
 
 def _reduce(xs, op):
-    acc = xs[0]
-    for x in xs[1:]:
+    allx = _all_shards(xs)
+    acc = allx[0]
+    for x in allx[1:]:
         acc = op(acc, x.to(acc.device))
     return _replicate(acc, xs)
 
@@ -155,17 +285,69 @@ def pmax(xs):
 
 
 def all_to_all(xs):
-    """xs[s] holds N equal blocks, block d bound for shard d: out[d] is
-    the blocks in[s][d] over s, concatenated in shard order."""
+    """xs[s] holds N equal blocks, block d bound for shard d (across
+    processes every shard's tensor has one size): out[d] is the blocks
+    in[s][d] over s, concatenated in shard order."""
     n = len(xs)
-    parts = [x.reshape(n, -1) for x in xs]
-    return [torch.cat([parts[s][d].to(xs[d].device) for s in range(n)])
-            for d in range(n)]
+    own = owned(xs)
+    if len(own) == n:
+        parts = [x.reshape(n, -1) for x in xs]
+        return [torch.cat([parts[s][d].to(xs[d].device) for s in range(n)])
+                for d in range(n)]
+    per = len(own)
+    world = n // per
+    like = xs[own[0]]
+    blk = int(like.numel()) // n
+    # (my shard s, destination d, block) -> (rank of d, d within it, s)
+    send = torch.stack([xs[s].reshape(n, blk) for s in own]) \
+        .reshape(per, world, per, blk).permute(1, 2, 0, 3)
+    b = _bytes_of(send, world)
+    recv = _wire_call("all_to_all", td.all_to_all_single, b,
+                      torch.empty_like(b))
+    # (source rank, my shard d, its shard s, block) -> d: every s in order
+    got = _from_bytes(recv, send[0], world).permute(1, 0, 2, 3) \
+        .reshape(per, n * blk)
+    out = [None] * n
+    for j, d in enumerate(own):
+        out[d] = got[j].to(xs[d].device)
+    return out
 
 
 def all_gather(xs):
     """Every shard's tensor, concatenated in shard order; replicated."""
-    return _replicate(torch.cat([x.to(xs[0].device) for x in xs]), xs)
+    first = here(xs)
+    return _replicate(torch.cat([x.to(first.device)
+                                 for x in _all_shards(xs)]), xs)
+
+
+def rotate(xs):
+    """The ring step: shard d takes shard d - 1's tensor (shard 0 the
+    last shard's), on shard d's device. Across processes each rank sends
+    its last shard to the next rank (every shard's tensor of one
+    size)."""
+    n = len(xs)
+    own = owned(xs)
+    if len(own) == n:
+        return [xs[d - 1].to(xs[d].device) for d in range(n)]
+    per = len(own)
+    world = n // per
+    rank = own[0] // per
+    last = xs[own[-1]]
+    b = _bytes_of(last[None], 1)
+    nb = int(b.shape[1])
+    splits = [0] * world
+    out_splits = [0] * world
+    splits[(rank + 1) % world] = nb
+    out_splits[(rank - 1) % world] = nb
+    recv = _wire_call(
+        "rotate", lambda r, s: td.all_to_all_single(
+            r.reshape(-1), s.reshape(-1), out_splits, splits),
+        b, torch.empty_like(b))
+    out = [None] * n
+    out[own[0]] = _from_bytes(recv, last, 1)[0].to(xs[own[0]].device)
+    for d in own[1:]:
+        out[d] = xs[d - 1].to(xs[d].device)
+    return out
 
 
 def axis_index(mesh: Mesh):
@@ -175,8 +357,9 @@ def axis_index(mesh: Mesh):
 
 def unshard(xs, n):
     """Row-sharded per-shard tensors as one tensor of their first n rows,
-    on shard 0's device."""
-    return torch.cat([x.to(xs[0].device) for x in xs])[:n]
+    on this process's first shard's device (every process gets it)."""
+    first = here(xs)
+    return torch.cat([x.to(first.device) for x in _all_shards(xs)])[:n]
 
 
 # -- shard-local helpers ------------------------------------------------------
@@ -278,8 +461,7 @@ def _select_small(n_codes, shard_rows_n, codes, ints=(), sums=(), mins=(),
                   maxs=()):
     """dist_select_small's body over per-shard lists (`ints`, `sums`,
     `mins`, `maxs`: lanes, each a per-shard list)."""
-    parts = []
-    for me, c in enumerate(codes):
+    def part(me, c):
         n = int(c.shape[0])
         bc = G.bcast_scan(c, n_codes, n, sums=tuple(x[me] for x in sums),
                           mins=tuple(x[me] for x in mins),
@@ -296,12 +478,14 @@ def _select_small(n_codes, shard_rows_n, codes, ints=(), sums=(), mins=(),
             p.update({f"task{i}": x[:n_codes] for i, x in enumerate(dense)})
         p.update((k, v) for k, v in bc.items()
                  if k.startswith(("sum", "min", "max")))
-        parts.append(p)
+        return p
+
+    parts = smap(part, codes)
     out = {}
-    for name in parts[0]:
+    for name in here(parts):
         comb = pmin if name == "fidx" or name.startswith("min") else \
             pmax if name == "lidx" or name.startswith("max") else psum
-        out[name] = comb([p[name] for p in parts])[0]
+        out[name] = here(comb(pick(parts, name)))
     return out
 
 
@@ -334,7 +518,8 @@ def dist_groupby_sum(mesh: Mesh, n_codes: int):
     the result, (n_codes + 1,) f64, is replicated."""
     def kernel(codes, values):
         return _select_small(n_codes + 1, 0, codes,
-                             sums=[[v.to(F64) for v in values]])["sum0"]
+                             sums=[smap(lambda _i, v: v.to(F64),
+                                        values)])["sum0"]
 
     n_dev = mesh.n
     return _counted(kernel,
@@ -358,10 +543,10 @@ def dist_filter_group_sum(mesh: Mesh, n_codes: int):
     fn(codes, values, mask) -> (sums, counts), each (n_codes + 1,) f64
     and replicated; filtered rows land in slot n_codes."""
     def kernel(codes, values, mask):
-        cm = [torch.where(m.to(BOOL), c, n_codes)
-              for c, m in zip(codes, mask)]
+        cm = smap(lambda _i, c, m: torch.where(m.to(BOOL), c, n_codes),
+                  codes, mask)
         out = _select_small(n_codes + 1, 0, cm,
-                            sums=[[v.to(F64) for v in values]])
+                            sums=[smap(lambda _i, v: v.to(F64), values)])
         return out["sum0"], out["counts"].to(F64)
 
     n_dev = mesh.n
@@ -377,13 +562,15 @@ def _shuffle(dest, live, cols, n_dev, cap):
     dest, live: per-shard lists; cols: per shard, its [(lane, fill)].
     Returns (per lane, the received per-shard tensors, source shards in
     order; per shard, the (1,) i64 count of live rows past a cap)."""
-    sends, ovf = [], []
-    for d, lv, cs in zip(dest, live, cols):
+    def send(_me, d, lv, cs):
         slot, ok = _bucket_slots(d, n_dev, cap, lv)
-        ovf.append((lv & ~ok).sum().to(I64).reshape(1))
-        sends.append([_place(x, slot, n_dev * cap, f) for x, f in cs])
-    return [all_to_all([s[j] for s in sends])
-            for j in range(len(cols[0]))], ovf
+        return ([_place(x, slot, n_dev * cap, f) for x, f in cs],
+                (lv & ~ok).sum().to(I64).reshape(1))
+
+    sent = smap(send, dest, live, cols)
+    sends = pick(sent, 0)
+    return [all_to_all(pick(sends, j))
+            for j in range(len(here(cols)))], pick(sent, 1)
 
 
 def _route_back(lrows, lanes, fills, nl, cap, extra=None):
@@ -399,8 +586,9 @@ def _route_back(lrows, lanes, fills, nl, cap, extra=None):
     outputs)."""
     n_dev = len(lrows)
     size = n_dev * cap
-    sends, keeps, ovf = [], [], []
-    for me, lr in enumerate(lrows):
+    sends, keeps, ovf = [None] * n_dev, [None] * n_dev, [None] * n_dev
+    for me in owned(lrows):
+        lr = lrows[me]
         dv = lr.device
         lv = lr >= 0
         dst = torch.where(lv, lr // nl, n_dev).to(I64)
@@ -408,16 +596,14 @@ def _route_back(lrows, lanes, fills, nl, cap, extra=None):
         mine = lv & (dst == me)
         away = lv & ~mine
         slot, ok = _bucket_slots(dst, n_dev, cap, away)
-        ovf.append((away & ~ok).sum().to(I64).reshape(1))
-        sends.append([_place(off, slot, size, -1)] +
-                     [_place(ln[me], slot, size, f)
-                      for ln, f in zip(lanes, fills)])
-        keeps.append(torch.where(mine, off.to(I64),
-                                 _dropped(int(lr.shape[0]), nl, dv)))
-    recv = [all_to_all([s[j] for s in sends])
-            for j in range(1 + len(lanes))]
-    outs = [[] for _ in lanes]
-    for me in range(n_dev):
+        ovf[me] = (away & ~ok).sum().to(I64).reshape(1)
+        sends[me] = [_place(off, slot, size, -1)] + \
+            [_place(ln[me], slot, size, f) for ln, f in zip(lanes, fills)]
+        keeps[me] = torch.where(mine, off.to(I64),
+                                _dropped(int(lr.shape[0]), nl, dv))
+    recv = [all_to_all(pick(sends, j)) for j in range(1 + len(lanes))]
+    outs = [[None] * n_dev for _ in lanes]
+    for me in owned(lrows):
         xo = recv[0][me]
         parts = [(keeps[me], [ln[me] for ln in lanes]),
                  (torch.where(xo >= 0, xo.to(I64),
@@ -431,8 +617,8 @@ def _route_back(lrows, lanes, fills, nl, cap, extra=None):
                              device=like.device)
             for tgt, vals in parts:
                 buf[tgt] = vals[j]
-            outs[j].append(buf[:nl])
-    return psum(ovf)[0], outs
+            outs[j][me] = buf[:nl]
+    return here(psum(ovf)), outs
 
 
 def dist_shuffle(mesh: Mesh, capacity: int):
@@ -450,11 +636,12 @@ def dist_shuffle(mesh: Mesh, capacity: int):
 
     def kernel(keys, values):
         (rk, rv), ovf = _shuffle(
-            [k % n_dev for k in keys],
-            [torch.ones(k.shape, dtype=BOOL, device=k.device) for k in keys],
-            [[(k, -1), (v, 0)] for k, v in zip(keys, values)],
+            smap(lambda _i, k: k % n_dev, keys),
+            smap(lambda _i, k: torch.ones(k.shape, dtype=BOOL,
+                                          device=k.device), keys),
+            smap(lambda _i, k, v: [(k, -1), (v, 0)], keys, values),
             n_dev, capacity)
-        return rk, rv, [x >= 0 for x in rk], psum(ovf)[0]
+        return rk, rv, smap(lambda _i, x: x >= 0, rk), here(psum(ovf))
 
     return _counted(
         kernel, lambda *a: 2 * n_dev * (n_dev - 1) * capacity * 8)
@@ -614,13 +801,14 @@ def dist_wide_groupby(mesh: Mesh, rows_local: int, out_cap: int,
         return gout, torch.clamp(my_ng - out_cap, min=0).reshape(1)
 
     def kernel(codes, *lanes):
-        sends = [stage_a(me, c, [ln[me] for ln in lanes])
-                 for me, c in enumerate(codes)]
-        recvs = [all_to_all([s[j] for s in sends])
-                 for j in range(len(sends[0]))]
-        merged = [stage_c([r[d] for r in recvs]) for d in range(n_dev)]
-        ovf = psum([o for _g, o in merged])[0]
-        gathered = [all_gather([g[j] for g, _o in merged])[0]
+        sends = smap(lambda me, c: stage_a(me, c, [ln[me] for ln in lanes]),
+                     codes)
+        recvs = [all_to_all(pick(sends, j))
+                 for j in range(len(here(sends)))]
+        merged = smap(lambda d, _c: stage_c([r[d] for r in recvs]), codes)
+        ovf = here(psum(pick(merged, 1)))
+        gs = pick(merged, 0)
+        gathered = [here(all_gather(pick(gs, j)))
                     for j in range(3 + n_lanes)]
         acode, acnt, afidx = gathered[:3]
         fkey = torch.where(acode >= 0, afidx, KEY_MAX)
@@ -708,9 +896,11 @@ def dist_med_groupby(mesh: Mesh, rows_local: int, cap: int,
         64-round rank search (replicated (K,) f64)."""
         meds = []
         for li in range(n_lanes):
-            shard = []      # per shard: the search tables below
-            es = []         # per shard: each candidate's non-null values
-            for me, (is_heavy, cand_of_row) in enumerate(cand_rows):
+            # per shard: the search tables below, and each candidate's
+            # non-null values
+            shard, es = [None] * n_dev, [None] * n_dev
+            for me in owned(cand_rows):
+                is_heavy, cand_of_row = cand_rows[me]
                 rl = lanes[li][me]
                 dv = rl.device
                 s = f64_order(rl)     # signed order = float order
@@ -729,11 +919,11 @@ def dist_med_groupby(mesh: Mesh, rows_local: int, cap: int,
                 ends = torch.searchsorted(sci, kk, right=True)
                 # per (candidate, rank) lane: the candidate in the high
                 # word of a search key, and where its run starts
-                shard.append((packed, svals,
-                              kk.to(I64).repeat_interleave(2) << 32,
-                              starts.repeat_interleave(2)))
-                es.append((ends - starts).to(I64))
-            e = psum(es)[0]
+                shard[me] = (packed, svals,
+                             kk.to(I64).repeat_interleave(2) << 32,
+                             starts.repeat_interleave(2))
+                es[me] = (ends - starts).to(I64)
+            e = here(psum(es))
             dv0 = e.device
             ranks = torch.stack([torch.clamp((e - 1) // 2, min=0), e // 2],
                                 1)
@@ -742,12 +932,13 @@ def dist_med_groupby(mesh: Mesh, rows_local: int, cap: int,
                 b = I64_MIN if bit == 63 else (1 << bit)
                 trial = cur | b
                 t_s = (trial ^ I64_MIN).reshape(-1)   # signed order
-                cnts = []
-                for packed, svals, khi, starts in shard:
+                cnts = [None] * n_dev
+                for me in owned(shard):
+                    packed, svals, khi, starts = shard[me]
                     rt = torch.searchsorted(svals, t_s.to(svals.device))
                     pos = torch.searchsorted(packed, khi | rt)
-                    cnts.append(pos - starts)
-                cnt = psum(cnts)[0].reshape(K, 2)
+                    cnts[me] = pos - starts
+                cnt = here(psum(cnts)).reshape(K, 2)
                 cur = torch.where(cnt <= ranks, trial, cur)
             sel = f64_from_order(cur ^ I64_MIN)
             mv = (sel[:, 0] + sel[:, 1]) / 2.0
@@ -788,67 +979,67 @@ def dist_med_groupby(mesh: Mesh, rows_local: int, cap: int,
 
     def kernel(codes, *lanes):
         # ---- locally-heavy candidates, gathered and deduplicated ------
-        cl = [candidates(c) for c in codes]
-        ovf_cand = psum([o for _c, o in cl])[0]
-        cand = all_gather([c for c, _o in cl])[0]
+        cl = smap(lambda _i, c: candidates(c), codes)
+        ovf_cand = here(psum(pick(cl, 1)))
+        cand = here(all_gather(pick(cl, 0)))
         (cand,), _ = sort_lex([torch.where(cand >= 0, cand, KEY_MAX)])
         dup = torch.cat([torch.zeros(1, dtype=BOOL, device=cand.device),
                          cand[1:] == cand[:-1]])
         cand = torch.where(dup | (cand == KEY_MAX), KEY_MAX, cand)
         (cand_s,), _ = sort_lex([cand])     # KEY_MAX holes at the end
-        cand_rows = []
-        for me, c in enumerate(codes):
+
+        def cand_row(_me, c):
             cs = cand_s.to(c.device)
             cixc = torch.clamp(torch.searchsorted(cs, c), 0, K - 1)
             is_heavy = (cs[cixc] == c) & (c >= 0)
-            cand_rows.append((is_heavy, torch.where(is_heavy, cixc, K)))
+            return is_heavy, torch.where(is_heavy, cixc, K)
+        cand_rows = smap(cand_row, codes)
 
         # ---- heavy candidates: distributed rank selection -------------
         heavy_meds = rank_select(cand_rows, lanes)
-        hf, hc = [], []
-        for me, (c, (is_heavy, cand_of_row)) in enumerate(
-                zip(codes, cand_rows)):
+
+        def heavy_first(me, c, cr):
             n = int(c.shape[0])
             rid = me * n + torch.arange(n, device=c.device)
             # integer scatters spread over copies of the K + 1 cells
             # (groupby._cells): most rows hit the non-candidate cell
-            cells = G._cells(cand_of_row, K + 1, n)
-            hf.append(G._scatter_ext(cells, K + 1, rid, "amin")[:K])
-            hc.append(G._scatter_sum(cells, K + 1,
-                                     torch.ones_like(rid))[:K])
-        hfid = pmin(hf)[0]
-        hcnt = psum(hc)[0]
+            cells = G._cells(cr[1], K + 1, n)
+            return (G._scatter_ext(cells, K + 1, rid, "amin")[:K],
+                    G._scatter_sum(cells, K + 1, torch.ones_like(rid))[:K])
+        hfc = smap(heavy_first, codes, cand_rows)
+        hfid = here(pmin(pick(hfc, 0)))
+        hcnt = here(psum(pick(hfc, 1)))
         hvalid = (cand_s != KEY_MAX) & (hcnt > 0)
         hcode = torch.where(hvalid, cand_s, -1)
         hfid = torch.where(hvalid, hfid, KEY_MAX)
 
         # ---- raw-row shuffle by code ownership (light rows) -----------
-        cols = []
-        for me, c in enumerate(codes):
+
+        def col(me, c):
             n = int(c.shape[0])
             rid = me * n + torch.arange(n, device=c.device)
-            cols.append([(c, -1), (rid, KEY_MAX)] +
-                        [(ln[me], float("nan")) for ln in lanes])
+            return [(c, -1), (rid, KEY_MAX)] + \
+                [(ln[me], float("nan")) for ln in lanes]
         recvs, ovf_ex = _shuffle(
-            [c % n_dev for c in codes],
-            [(c >= 0) & ~h for c, (h, _co) in zip(codes, cand_rows)],
-            cols, n_dev, cap)
-        local = [local_medians(recvs[0][d], recvs[1][d],
-                               [r[d] for r in recvs[2:]])
-                 for d in range(n_dev)]
-        ovf_out = psum([x[3] for x in local])[0]
+            smap(lambda _i, c: c % n_dev, codes),
+            smap(lambda _i, c, cr: (c >= 0) & ~cr[0], codes, cand_rows),
+            smap(col, codes), n_dev, cap)
+        local = smap(lambda d, _c: local_medians(
+            recvs[0][d], recvs[1][d], [r[d] for r in recvs[2:]]), codes)
+        ovf_out = here(psum(pick(local, 3)))
 
         # ---- gather + global first-appearance order -------------------
         # heavy candidate lanes are replicated, so they append ONCE
-        acode = torch.cat([all_gather([x[0] for x in local])[0], hcode])
-        afidx = torch.cat([all_gather([x[1] for x in local])[0], hfid])
-        ameds = [torch.cat([all_gather([x[2][i] for x in local])[0], hm])
+        acode = torch.cat([here(all_gather(pick(local, 0))), hcode])
+        afidx = torch.cat([here(all_gather(pick(local, 1))), hfid])
+        lmeds = pick(local, 2)
+        ameds = [torch.cat([here(all_gather(pick(lmeds, i))), hm])
                  for i, hm in enumerate(heavy_meds)]
         fkey = torch.where(acode >= 0, afidx, KEY_MAX)
         perm = _sort_perm([fkey])
         oc = acode[perm]
         ng = (oc >= 0).sum().reshape(1)
-        return tuple([ng, psum(ovf_ex)[0] + ovf_cand, ovf_out, oc,
+        return tuple([ng, here(psum(ovf_ex)) + ovf_cand, ovf_out, oc,
                       fkey[perm]] + [x[perm] for x in ameds])
 
     _a2a = (2 + n_lanes) * n_dev * (n_dev - 1) * cap * 8
@@ -962,12 +1153,14 @@ def dist_sort(mesh: Mesh, n_rows: int, key_dtypes, cap: int,
         return sort_lex(ks + [torch.where(valid, rid, KEY_MAX)])[0]
 
     def splitters(runs):
-        n = int(runs[0][0].shape[0])
-        dv = runs[0][0].device
+        first = here(runs)[0]
+        n = int(first.shape[0])
+        dv = first.device
         pos = torch.clamp((torch.arange(S, device=dv) * n) // S +
                           max(n // (2 * S), 0), 0, n - 1)
-        gathered = [all_gather([r[j][pos.to(r[j].device)] for r in runs])[0]
-                    for j in range(nk + 1)]
+        gathered = [here(all_gather(smap(
+            lambda _i, r: r[j][pos.to(r[j].device)], runs)))
+            for j in range(nk + 1)]
         gs = sort_lex(gathered)[0]
         at = torch.arange(1, n_dev, device=dv) * S
         return [g[at] for g in gs]
@@ -990,21 +1183,25 @@ def dist_sort(mesh: Mesh, n_rows: int, key_dtypes, cap: int,
                 (~ok).sum().to(I64).reshape(1))
 
     def kernel(*keys):
-        runs = [local_sort(me, [k[me] for k in keys]) for me in range(n_dev)]
+        runs = smap(lambda me, _k: local_sort(me, [k[me] for k in keys]),
+                    keys[0])
         sps = splitters(runs)
-        sent = [route(r, sps) for r in runs]
-        ovf = psum([o for _s, o in sent])[0]
-        recv = [all_to_all([s[j] for s, _o in sent]) for j in range(nk + 1)]
-        mrid = [sort_lex([r[d] for r in recv])[0][nk] for d in range(n_dev)]
-        valid = [r != KEY_MAX for r in mrid]
-        counts = all_gather([v.sum().to(I64).reshape(1) for v in valid])[0]
+        sent = smap(lambda _i, r: route(r, sps), runs)
+        ovf = here(psum(pick(sent, 1)))
+        sends = pick(sent, 0)
+        recv = [all_to_all(pick(sends, j)) for j in range(nk + 1)]
+        mrid = smap(lambda d, _r: sort_lex([r[d] for r in recv])[0][nk],
+                    runs)
+        valid = smap(lambda _i, r: r != KEY_MAX, mrid)
+        counts = here(all_gather(smap(
+            lambda _i, v: v.sum().to(I64).reshape(1), valid)))
         first = torch.cumsum(counts, 0) - counts    # exclusive scan
         # each row's global position, whose owner takes it at its offset
-        pos = [torch.where(v, first.to(v.device)[me] +
-                           torch.cumsum(v.to(I64), 0) - 1, -1)
-               for me, v in enumerate(valid)]
+        pos = smap(lambda me, v: torch.where(
+            v, first.to(v.device)[me] + torch.cumsum(v.to(I64), 0) - 1, -1),
+            valid)
         ovf3, (shards,) = _route_back(pos, [mrid], [KEY_MAX], rows_out, cap3)
-        return ovf + ovf3.to(ovf.device), all_gather(shards)[0][:n_rows]
+        return ovf + ovf3.to(ovf.device), here(all_gather(shards))[:n_rows]
 
     _smp = (nk + 1) * n_dev * (n_dev - 1) * S * 8
     _a2a = (nk + 1) * n_dev * (n_dev - 1) * cap * 8
@@ -1029,7 +1226,7 @@ def dist_sort_auto(mesh: Mesh, n_rows: int, key_dtypes):
         while True:
             if (c, c3) not in tried:
                 tried[(c, c3)] = dist_sort(
-                    mesh, n_rows, tuple(k[0].dtype for k in keys), c,
+                    mesh, n_rows, tuple(here(k).dtype for k in keys), c,
                     cap3=c3)
             ovf, order = tried[(c, c3)](*keys)
             if int(ovf[0]) == 0:
@@ -1059,14 +1256,14 @@ def dist_left_probe(mesh: Mesh):
         # a stable sort by key is the (key, position) sort
         (sk,), _, sp = sort_lex([rkeys], perm=True)
         sp = sp.to(I64)
-        rids, hass = [], []
-        for lk in lkeys:
+
+        def probe(_me, lk):
             skd, spd = sk.to(lk.device), sp.to(lk.device)
             ixc = torch.searchsorted(skd, lk).clamp(0, nr - 1)
             has = skd[ixc] == lk
-            rids.append(torch.where(has, spd[ixc], -1))
-            hass.append(has)
-        return rids, hass
+            return torch.where(has, spd[ixc], -1), has
+        out = smap(probe, lkeys)
+        return pick(out, 0), pick(out, 1)
 
     # the broadcast of the replicated right key column
     return _counted(kernel, lambda lk, rk: (n_dev - 1) * rk.numel() * 8)
@@ -1123,17 +1320,18 @@ def dist_eq_probe(mesh: Mesh, n_total_l: int, cap_l: int, cap_r: int,
         return (cand[posc] == keys) & (keys >= 0), posc
 
     def kernel(lkey, rkey):
-        nl = int(lkey[0].shape[0])
-        nr = int(rkey[0].shape[0])
+        nl = int(here(lkey).shape[0])
+        nr = int(here(rkey).shape[0])
         capb = cap_b if cap_b is not None else max(2 * nl // n_dev, 64)
 
         # ---- heavy candidates, resolved on the unrouted right shards --
-        cand = all_gather([torch.cat([local_heavy(lk, cap_l // 2),
-                                      local_heavy(rk, cap_r // 2)])
-                           for lk, rk in zip(lkey, rkey)])[0]
+        cand = here(all_gather(smap(
+            lambda _i, lk, rk: torch.cat([local_heavy(lk, cap_l // 2),
+                                          local_heavy(rk, cap_r // 2)]),
+            lkey, rkey)))
         (cand,), _ = sort_lex([cand])
-        cmins = []
-        for me, rk in enumerate(rkey):
+
+        def cmin_of(me, rk):
             c = cand.to(rk.device)
             # row ids ascend within a shard: the stable key sort is the
             # (key, row id) sort
@@ -1141,29 +1339,29 @@ def dist_eq_probe(mesh: Mesh, n_total_l: int, cap_l: int, cap_r: int,
                                         perm=True)
             cpc = torch.searchsorted(lsk, c).clamp(0, nr - 1)
             chit = (lsk[cpc] == c) & (c != KEY_MAX)
-            cmins.append(torch.where(chit, me * nr + lperm[cpc].to(I64),
-                                     KEY_MAX))
-        cmin = pmin(cmins)[0]
+            return torch.where(chit, me * nr + lperm[cpc].to(I64), KEY_MAX)
+        cmin = here(pmin(smap(cmin_of, rkey)))
 
         # ---- the other rows routed by key % n_shards ------------------
-        ml = [member(cand.to(k.device), k) for k in lkey]
-        mr = [member(cand.to(k.device), k)[0] for k in rkey]
+        ml = smap(lambda _i, k: member(cand.to(k.device), k), lkey)
+        mr = smap(lambda _i, k: member(cand.to(k.device), k)[0], rkey)
         (xlk, xlr), ovf_l = _shuffle(
-            [k % n_dev for k in lkey],
-            [(k >= 0) & ~h for k, (h, _p) in zip(lkey, ml)],
-            [[(k, -1), ((me * nl + torch.arange(nl, device=k.device))
-                        .to(I32), -1)] for me, k in enumerate(lkey)],
+            smap(lambda _i, k: k % n_dev, lkey),
+            smap(lambda _i, k, m: (k >= 0) & ~m[0], lkey, ml),
+            smap(lambda me, k: [
+                (k, -1), ((me * nl + torch.arange(nl, device=k.device))
+                          .to(I32), -1)], lkey),
             n_dev, cap_l)
         (xrk, xrr), ovf_r = _shuffle(
-            [k % n_dev for k in rkey],
-            [(k >= 0) & ~h for k, h in zip(rkey, mr)],
-            [[(k, -1), (me * nr + torch.arange(nr, device=k.device),
-                        KEY_MAX)] for me, k in enumerate(rkey)],
+            smap(lambda _i, k: k % n_dev, rkey),
+            smap(lambda _i, k, h: (k >= 0) & ~h, rkey, mr),
+            smap(lambda me, k: [
+                (k, -1), (me * nr + torch.arange(nr, device=k.device),
+                          KEY_MAX)], rkey),
             n_dev, cap_r)
 
         # ---- per shard: first match = smallest right row id -----------
-        rids, hass = [], []
-        for xk, xr, lk in zip(xrk, xrr, xlk):
+        def first_match(_me, xk, xr, lk):
             # the received rows' ids ascend (source shards in order, rows
             # in order): the stable key sort is the (key, row id) sort
             (srk,), (srr,) = sort_lex([torch.where(xk >= 0, xk, KEY_MAX)],
@@ -1171,20 +1369,21 @@ def dist_eq_probe(mesh: Mesh, n_total_l: int, cap_l: int, cap_r: int,
             ixc = torch.searchsorted(srk, lk.clamp(min=0)) \
                 .clamp(0, int(srk.shape[0]) - 1)
             has = (srk[ixc] == lk) & (lk >= 0)
-            rids.append(torch.where(has, srr[ixc], -1))
-            hass.append(has)
+            return torch.where(has, srr[ixc], -1), has
+        found = smap(first_match, xrk, xrr, xlk)
 
         # ---- back to each left row's owner, heavy rows merged there ---
-        extra = []
-        for k, (ish, pos) in zip(lkey, ml):
+        def heavy_rows(_me, k, m):
+            ish, pos = m
             hmin = cmin.to(k.device)[pos]
             h_has = ish & (hmin != KEY_MAX)
             tgt = torch.where(ish, torch.arange(nl, device=k.device),
                               _dropped(nl, nl, k.device))
-            extra.append((tgt, [torch.where(h_has, hmin, -1), h_has]))
-        ovf_b, (rid, has) = _route_back(xlr, [rids, hass], [-1, False], nl,
-                                        capb, extra)
-        return (psum(ovf_l)[0], psum(ovf_r)[0], ovf_b, rid, has)
+            return tgt, [torch.where(h_has, hmin, -1), h_has]
+        ovf_b, (rid, has) = _route_back(
+            xlr, [pick(found, 0), pick(found, 1)], [-1, False], nl, capb,
+            smap(heavy_rows, lkey, ml))
+        return (here(psum(ovf_l)), here(psum(ovf_r)), ovf_b, rid, has)
 
     capb_est = cap_b if cap_b is not None else cap_l
     _a2a = n_dev * (n_dev - 1) * \
@@ -1210,17 +1409,18 @@ def dist_asof_probe(mesh: Mesh):
     n_dev = mesh.n
 
     def kernel(lkey, lts, rkey, rts, rval):
-        srk, svs, lpk = [], [], []
-        for lk, lt, rk, rt_, rv in zip(lkey, lts, rkey, rts, rval):
+        def right_run(_me, rk, rt_, rv):
             rpk = torch.where(rk >= 0, (rk << 31) | rt_, KEY_MAX)
-            (a, b), _ = sort_lex([rpk, f64_order(rv)])
-            srk.append(a)
-            svs.append(b)
-            lpk.append((lk.clamp(min=0) << 31) | lt)
-        bpk = [torch.full_like(x, -1) for x in lpk]
-        bvs = [torch.full_like(x, I64_MIN) for x in lpk]
+            return sort_lex([rpk, f64_order(rv)])[0]
+        runs = smap(right_run, rkey, rts, rval)
+        srk, svs = pick(runs, 0), pick(runs, 1)
+        lpk = smap(lambda _i, lk, lt: (lk.clamp(min=0) << 31) | lt,
+                   lkey, lts)
+        bpk = smap(lambda _i, x: torch.full_like(x, -1), lpk)
+        bvs = smap(lambda _i, x: torch.full_like(x, I64_MIN), lpk)
         for step in range(n_dev):
-            for d, (lk, q) in enumerate(zip(lkey, lpk)):
+            for d in owned(lkey):
+                lk, q = lkey[d], lpk[d]
                 sk, sv = srk[d], svs[d]
                 ix = torch.searchsorted(sk, q, right=True) - 1
                 ixc = ix.clamp(0, int(sk.shape[0]) - 1)
@@ -1231,13 +1431,14 @@ def dist_asof_probe(mesh: Mesh):
                 bpk[d] = torch.where(better, cpk, bpk[d])
                 bvs[d] = torch.where(better, cvs, bvs[d])
             if step < n_dev - 1:
-                srk = [srk[d - 1].to(lkey[d].device) for d in range(n_dev)]
-                svs = [svs[d - 1].to(lkey[d].device) for d in range(n_dev)]
-        hits = [b >= 0 for b in bpk]
-        vals = [torch.where(h, f64_from_order(v), math.nan)
-                for h, v in zip(hits, bvs)]
+                srk = rotate(srk)
+                svs = rotate(svs)
+        hits = smap(lambda _i, b: b >= 0, bpk)
+        vals = smap(lambda _i, h, v: torch.where(h, f64_from_order(v),
+                                                 math.nan), hits, bvs)
         return vals, hits
 
-    # each right row rides the whole ring: n_shards steps x 16 bytes
+    # each right row rides the whole ring: n_shards steps x 16 bytes (the
+    # shards are of one size: the global rows from this process's)
     return _counted(kernel, lambda lk, lts, rk, rts, rv:
-                    n_dev * sum(int(x.numel()) for x in rk) * 16)
+                    n_dev * n_dev * int(here(rk).numel()) * 16)

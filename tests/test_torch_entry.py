@@ -49,3 +49,16 @@ def test_entry_step_empty_groups():
         assert np.array_equal(g, w)
     assert got[1][7] == 0 and got[2][7] == np.inf
     assert got[3][7] == np.iinfo(np.int64).max
+
+
+def test_dryrun_multichip_on_cpu(capsys):
+    """The port's dryrun_multichip (the counterpart of
+    __graft_entry__.dryrun_multichip) over 8 shards of CPU torch: the
+    mesh kernels against numpy and every DRYRUN_QUERIES step on its mesh
+    engine, equal to the host path; the engine's settings and mesh are
+    left as they were."""
+    from rayforce_tpu_torch.engine import device as dev
+    saved_cfg, saved_mesh = dict(dev._cfg), dict(dev._mesh_state)
+    port_entry.dryrun_multichip(8, device="cpu")
+    assert "dryrun_multichip(8): ok" in capsys.readouterr().out
+    assert dev._cfg == saved_cfg and dev._mesh_state == saved_mesh

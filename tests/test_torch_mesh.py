@@ -153,19 +153,6 @@ def test_mesh_state():
             dev._cfg.update(saved_cfg)
 
 
-def test_coordinator_raises():
-    """The multi-process mesh is not ported: RAYFORCE_COORDINATOR
-    raises DeviceError, through a select too, instead of quietly
-    building a one-process mesh."""
-    rrt, prt = _runtimes({"k": (np.arange(300, dtype=np.int64) % 7,
-                                "I64")})
-    with mesh_env(8, RAYFORCE_COORDINATOR="localhost:1234"):
-        with pytest.raises(dev.DeviceError, match="not ported"):
-            dev.mesh()
-        with pytest.raises(dev.DeviceError):
-            prt.eval_str("(select {c: (count k) from: t by: k})")
-
-
 @pytest.fixture(scope="module")
 def spmd_tables():
     """tests/test_dist.py::test_spmd_select_parity's table: 5003 rows,

@@ -818,6 +818,16 @@ def test_bench_window_joins(bench_tables, name):
     ew.last_profile.clear()
     lanes = force_columns(prt.eval_str(q))
     assert ew.last_profile["engine"] == "device-wjoin"
+    _held_to_host(prt, name, lanes)
+
+
+def _held_to_host(prt, name, lanes):
+    """Each forced lane of WJOIN_QUERIES[name] against the port host's
+    column: exactly, or for wj0's f64 sum, avg and dev lanes within 2^-40
+    of the prefix magnitude."""
+    from rayforce_tpu_torch.core.obj import to_np
+    from rayforce_tpu_torch.tools.jtables import WJOIN_QUERIES
+    q = WJOIN_QUERIES[name]
     dev.set_enabled(False)
     try:
         want = prt.eval_str(q)
@@ -840,6 +850,61 @@ def test_bench_window_joins(bench_tables, name):
                 atol=((pn - pn.mean()) ** 2).sum() * 2.0 ** -40)
         else:
             assert g.tobytes() == w.tobytes(), nm
+
+
+def test_wj0_bit_stable_across_cpu_threads(bench_tables):
+    """wj0's aggregates at 20 000 trades are the same bytes under 1, 2, 3
+    and 8 CPU threads: the dev lane's shift and noise floor are sums in
+    the fixed order of the prefix scan, not whole-vector sums whose
+    order follows the intra-op thread split. Each run's formatted output
+    equals the reference's, and its lanes the port host's within the
+    tolerance of test_bench_window_joins."""
+    from rayforce_tpu_torch.tools.jtables import WJOIN_QUERIES, \
+        force_columns
+    prt, (rrt_c, _prt_c) = bench_tables
+    q = WJOIN_QUERIES["wj0"]
+    rdev.set_enabled(True)
+    want = ref_fmt(rrt_c.eval_str(q))
+    saved = torch.get_num_threads()
+    runs = {}
+    try:
+        for threads in (1, 2, 3, 8):
+            torch.set_num_threads(threads)
+            out = prt.eval_str(q)
+            runs[threads] = force_columns(out)
+            assert fmt(out) == want, threads
+    finally:
+        torch.set_num_threads(saved)
+    for threads, lanes in runs.items():
+        for nm, a, b in zip(out.v[0].v, lanes, runs[1]):
+            assert all(x.numpy().tobytes() == y.numpy().tobytes()
+                       for x, y in zip(a, b)), (threads, nm)
+    _held_to_host(prt, "wj0", runs[1])
+
+
+def test_k_dev_bit_stable_across_cpu_threads():
+    """The window dev kernel over 240 000 right rows, a size at which a
+    whole-vector f64 sum on CPU torch gives other bits under other
+    thread counts: its lanes are the same bytes under 1, 2, 3, 4, 6 and
+    8 threads."""
+    rng = np.random.default_rng(12)
+    n, nl = 240_000, 5_000
+    sv = torch.from_numpy(rng.uniform(10, 200, n))
+    sv[torch.from_numpy(rng.integers(0, n, n // 100))] = float("nan")
+    li = torch.from_numpy(rng.integers(0, n - 20, nl))
+    ri = li + torch.from_numpy(rng.integers(0, 20, nl))
+    ok = torch.from_numpy(rng.random(nl) < 0.9)
+    saved = torch.get_num_threads()
+    got = {}
+    try:
+        for threads in (1, 2, 3, 4, 6, 8):
+            torch.set_num_threads(threads)
+            got[threads] = ew._k_dev(sv, li, ri, ok, T.F64).numpy()
+    finally:
+        torch.set_num_threads(saved)
+    assert np.isfinite(got[1][ok.numpy()]).mean() > 0.9
+    for threads, lane in got.items():
+        assert lane.tobytes() == got[1].tobytes(), threads
 
 
 # -- exact integer window sums ------------------------------------------------
