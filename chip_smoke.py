@@ -7,7 +7,8 @@ Phases, each reported on its own line:
 
 1. card      the GPU's name and power limit (nvidia-smi);
 2. build     build (or load) every CUDA kernel of the port from the
-             sources in this checkout;
+             sources in this checkout, one nvcc for each, all started
+             together: the radix sort and the segmented scan;
 3. kernels   each kernel against its plain PyTorch version on the card:
              the radix sort (engine/psort.py) for n in {977, 2^20+3,
              1e7}, 1-3 key words, random / heavily tied / INT32_MAX
@@ -29,7 +30,18 @@ Phases, each reported on its own line:
              the kernel's, the plain version's and the library call's
              times (torch.sort(...).values, torch.sort + index_select,
              or none), each route's time, the byte bound and the
-             passes the kernel skipped;
+             passes the kernel skipped. Then the segmented scan
+             (engine/groupby.py seg_scan_cuda) against seg_scan_plain,
+             bit for bit: min, max and sum; i32, i64 and f64 values;
+             i32 ids and i64 ids as a strided view; one lane and three
+             (a view of an (n, 4) tensor); both directions; n in
+             SCAN_SIZES (1 to 3e7) over runs of 1, 3, 2500 and 3500
+             rows (three blocks and more), one run and sorted ids with
+             -2s out of order; NaN of either sign, +-0.0, +-inf, the
+             identities and -1 among the values. One [seg_scan_time]
+             line per main-path scan shape at 1e7 rows (tools/sortprof.py
+             seg_scan_shapes): kernel and plain ms, the byte bound, no
+             library call;
 4. main path the db-benchmark G1_1e7_1e2 table (1e7 rows, K=100) made
              on the card from a seeded torch.Generator, and the grouped
              selects of every engine through Runtime().eval_str: bench
@@ -42,8 +54,12 @@ Phases, each reported on its own line:
              integer lanes exactly, f64 lanes within rtol 1e-9: the
              summation order differs) and the next card run bit for
              bit. A [sort_shapes] line counts the main path's sort
-             launches per (rows, key words, words). Then each query's
-             warm median exec_ms over 3 runs;
+             launches per (rows, key words, words), and a
+             [seg_scan_shapes] line its scans per shape: each query of
+             SCAN_QUERIES must launch the scan kernel and none may run
+             the plain version (phases 5, 6, 8, 9 and 10 print and
+             check the same line). Then each query's warm median
+             exec_ms over 3 runs;
 5. joins     bench.py's join tables made on the card (tools/jtables.py:
              the G1 table, a 1e6-row right table, 1e7 trades and 2e7
              quotes), and the joins and table sorts through
@@ -61,7 +77,9 @@ Phases, each reported on its own line:
              memory at aj. Then one [sort_time] line per sort shape of
              these queries, on the words the query gave the sort: kernel,
              plain and library (torch.sort(stable=True) of the one-value
-             key) ms, the byte bound and the passes skipped;
+             key) ms, the byte bound and the passes skipped, and one
+             [seg_scan_time] line for ij's and aj's scans on the ids
+             and values the query gave the scan;
 6. wjoin     on the same tables, the window joins through
              Runtime().eval_str (tools/jtables.py WJOIN_QUERIES): wj,
              bench.py's window-join1 of 1e7 trades against 2e7 quotes
@@ -152,8 +170,10 @@ Phases, each reported on its own line:
 12. report   one JSON line with every kernel's numbers (the radix sort's
              launches count the main path's, the joins', the window
              joins', the parted selects', the mesh selects', the mesh
-             joins' and the two ranks' runs), then the result line
-             {"ok": true, "device": {...}}.
+             joins' and the two ranks' runs; the scan's the same but the
+             parted selects'; the scan's times are those of its 1e7-row
+             i64 sum), then the result line {"ok": true, "device":
+             {...}}.
 
 Any failure raises and exits non-zero before the result line. Without a
 CUDA device, or without the rest of the repository beside it, it exits
@@ -485,6 +505,138 @@ def time_sorts(psort, torch, gen):
     return out
 
 
+SCAN_SIZES = (1, 977, 1023, 1024, 1025, (1 << 20) + 3, ROWS, 3 * ROWS)
+# run lengths: 1, 3, 2500, one run over every row, runs of 3500 rows (each
+# over three or more 1024-row blocks), and sorted ids from -5 with -2s
+# dropped in out of order
+SCAN_IDS = ("run1", "run3", "run2500", "one", "long", "mixed")
+# the f64 bit patterns dropped into the scan's values, with their row
+# strides: NaN, NaN with its sign bit set, 0.0, -0.0, inf and -inf
+SCAN_F64_BITS = ((0x7FF8000000000000, 997), (0xFFF8000000000000, 1009),
+                 (0, 5), (0x8000000000000000, 7), (0x7FF0000000000000, 101),
+                 (0xFFF0000000000000, 103))
+# the queries of each phase that run the segmented scan
+SCAN_QUERIES = {
+    "main": ("q2", "q3", "q4", "q5", "q6", "q7", "no_by", "where"),
+    "join": ("ij", "lj", "aj"),
+    "mesh": ("q2", "q3", "q4", "q5", "q6", "q7", "no_by", "where",
+             "med_id3", "med_id3_skew"),
+    "mesh_join": ("ij_eq", "lj_eq", "ij_eq_skew"),
+}
+
+
+def _scan_ids(torch, gen, dev, n, kind):
+    i = torch.arange(n, device=dev)
+    if kind == "mixed":
+        a = torch.sort(torch.randint(-5, max(2, n // 50), (n,),
+                                     generator=gen, device=dev)).values
+        a[torch.rand(n, generator=gen, device=dev) < 0.02] = -2
+        return a
+    return {"run1": i, "run3": i // 3, "run2500": i // 2500,
+            "one": torch.zeros_like(i), "long": i // 3500}[kind]
+
+
+def _scan_vals(torch, gen, dev, n, dtype):
+    """(n, 4) values: random, with the special values of the type (f64:
+    SCAN_F64_BITS; integers: the identities, which are also the joins'
+    "no row" sentinels, -1 and 0) at fixed row strides."""
+    if dtype == torch.float64:
+        v = (torch.rand((n, 4), generator=gen, device=dev,
+                        dtype=torch.float64) - 0.5) * 2e6
+        bits = v.view(torch.int64).view(-1)
+        for b, step in SCAN_F64_BITS:
+            bits[::step] = b - (1 << 64) if b >= 1 << 63 else b
+        return v
+    info = torch.iinfo(dtype)
+    v = torch.randint(info.min, info.max, (n, 4), generator=gen, device=dev,
+                      dtype=dtype)
+    flat = v.view(-1)
+    for x, step in ((info.max, 101), (info.min, 103), (-1, 7), (0, 5)):
+        flat[::step] = x
+    return v
+
+
+def _same_scan(torch, got, want):
+    """Equal type, shape and bits (f64 compared as its i64 bits)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if got.dtype == torch.float64:
+        got, want = got.view(torch.int64), want.view(torch.int64)
+    return bool(torch.equal(got, want))
+
+
+def check_seg_scan(G, torch, gen):
+    """The CUDA segmented scan against its plain version on the card, bit
+    for bit: every op (min, max, sum), value type (i32, i64, f64), id type
+    (i32, and i64 as a strided view), one lane and three (a view of an
+    (n, 4) tensor) and both directions, at n in SCAN_SIZES over the id
+    patterns of SCAN_IDS (the three longest sizes over run1, long and
+    mixed). Returns the number of cases."""
+    dev = torch.device("cuda")
+    cases = 0
+    for n in SCAN_SIZES:
+        kinds = SCAN_IDS if n <= (1 << 20) + 3 else ("run1", "long", "mixed")
+        vals = {dt: _scan_vals(torch, gen, dev, n, dt)
+                for dt in (torch.int32, torch.int64, torch.float64)}
+        for kind in kinds:
+            base = _scan_ids(torch, gen, dev, n, kind)
+            for ids in (base.to(torch.int32),
+                        torch.stack([base, base], 1)[:, 0]):
+                for dt, v4 in vals.items():
+                    for v in (v4[:, 0].contiguous(), v4[:, :3]):
+                        for op in ("min", "max", "sum"):
+                            for rev in (False, True):
+                                got = G.seg_scan_cuda(ids, v, op, rev)
+                                want = G.seg_scan_plain(ids, v, op, rev)
+                                if not _same_scan(torch, got, want):
+                                    raise AssertionError(
+                                        f"seg_scan differs: n={n} {kind} "
+                                        f"ids {ids.dtype} {dt} lanes "
+                                        f"{tuple(v.shape[1:])} {op} "
+                                        f"reverse={rev}")
+                                cases += 1
+        del vals
+    torch.cuda.synchronize()
+    return cases
+
+
+def time_scan(G, torch, name, ids, vals, op, rev):
+    """Kernel and plain ms (CUDA events, median of 11) of one scan, with
+    its byte bound (ids read once, values read once and written once);
+    the kernel's output equals the plain version's bit for bit."""
+    got = G.seg_scan_cuda(ids, vals, op, rev)
+    if not _same_scan(torch, got,
+                      G.seg_scan_plain(ids, vals, op, rev)):
+        raise AssertionError(f"seg_scan differs at shape {name}")
+    n, lanes = int(vals.shape[0]), int(vals[0].numel())
+    return {"shape": name, "rows": n, "lanes": lanes,
+            "dtype": str(vals.dtype)[6:], "id_dtype": str(ids.dtype)[6:],
+            "op": op, "reverse": rev,
+            "ms": cuda_ms(lambda: G.seg_scan_cuda(ids, vals, op, rev)),
+            "plain_ms": cuda_ms(lambda: G.seg_scan_plain(ids, vals, op,
+                                                         rev)),
+            "bound_ms": n * (ids.element_size() + 2 * vals.element_size() *
+                             lanes) / HBM_BYTES_PER_S * 1e3,
+            "library_ms": None}
+
+
+def scan_report(path, per_query, shapes, want):
+    """Each query of `want` launched the scan kernel, and no query ran
+    the plain version on the card; prints the [seg_scan_shapes] line."""
+    plain = sorted(k for k in shapes if k.endswith(" plain"))
+    if plain:
+        raise AssertionError(f"{path}: the plain scan ran on the card: "
+                             f"{plain}")
+    missing = [q for q in want if per_query.get(q, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{path}: the scan kernel never launched in "
+                             f"{missing}")
+    phase("seg_scan_shapes", path=path, launches=sum(per_query.values()),
+          per_query=json.dumps(per_query, separators=(",", ":")),
+          calls=json.dumps(shapes, separators=(",", ":")))
+    return sum(per_query.values())
+
+
 def _engine(sel, before):
     """The engine that answered the last query: wide and sort-agg name
     themselves in last_profile; the dense plan is a select._Plan in the
@@ -504,7 +656,8 @@ def main_path(rows, device):
     and hold each against the host path and against a second card run.
     Returns (launches of the main path's run, launches per query, warm
     median exec_ms per query, calls of the sort per (rows, key words,
-    words) in that run)."""
+    words) in that run, the host copies of the results, the scan
+    kernel's launches in that run)."""
     import torch
     from rayforce_tpu_torch import Runtime
     from rayforce_tpu_torch.core import symbols
@@ -512,6 +665,7 @@ def main_path(rows, device):
     from rayforce_tpu_torch.engine import psort
     from rayforce_tpu_torch.engine import select as sel
     from rayforce_tpu_torch.tools.g1 import QUERIES, g1_table
+    from rayforce_tpu_torch.tools.multiproc_worker import count_scans
 
     t0 = time.perf_counter()
     rt = Runtime()
@@ -532,25 +686,34 @@ def main_path(rows, device):
         shapes[k] = shapes.get(k, 0) + 1
         return real(words, n_keys, skipped, perm)
 
+    scans, scan_per_query = {}, {}
     psort.sort_i32_cuda = recording
-    psort.LAUNCHES["radix_sort"] = 0
+    psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["seg_scan"] = 0
     try:
-        for name, (q, engine) in QUERIES.items():
-            before = psort.LAUNCHES["radix_sort"]
-            cached = set(sel._plan_cache)
-            sel.last_profile.clear()
-            results[name] = rt.eval_str(q)
-            got = _engine(sel, cached)
-            if got != engine:
-                raise AssertionError(f"{name}: engine {got}, not {engine}")
-            per_query[name] = psort.LAUNCHES["radix_sort"] - before
-            if per_query[name] <= 0:
-                raise AssertionError(f"{name}: the CUDA sort never launched")
+        with count_scans(scans):
+            for name, (q, engine) in QUERIES.items():
+                before = dict(psort.LAUNCHES)
+                cached = set(sel._plan_cache)
+                sel.last_profile.clear()
+                results[name] = rt.eval_str(q)
+                got = _engine(sel, cached)
+                if got != engine:
+                    raise AssertionError(f"{name}: engine {got}, not "
+                                         f"{engine}")
+                per_query[name] = psort.LAUNCHES["radix_sort"] - \
+                    before["radix_sort"]
+                scan_per_query[name] = psort.LAUNCHES["seg_scan"] - \
+                    before["seg_scan"]
+                if per_query[name] <= 0:
+                    raise AssertionError(f"{name}: the CUDA sort never "
+                                         "launched")
     finally:
         psort.sort_i32_cuda = real
     if device == "cuda":
         torch.cuda.synchronize()
     launches = psort.LAUNCHES["radix_sort"]
+    scan_launches = scan_report("main", scan_per_query, scans,
+                                SCAN_QUERIES["main"])
 
     dev.set_enabled(False)
     try:
@@ -578,7 +741,7 @@ def main_path(rows, device):
         exec_ms[name] = statistics.median(runs)
         phase("exec_ms", query=name, engine=engine, median_ms=exec_ms[name],
               runs=runs, bit_identical=True)
-    return launches, per_query, exec_ms, shapes, host_cols
+    return launches, per_query, exec_ms, shapes, host_cols, scan_launches
 
 
 def _exec_ms(prof):
@@ -608,9 +771,9 @@ def mesh_path(rows, device, single):
     single-device card result (`single`: phase 4's host copies, held
     against the host path there; the two medians' are taken and held
     against the host path here) and a second mesh run. Returns (launches
-    of the checked runs, launches per query, and per query the mesh
-    answer's digest, exchanged bytes, engine and warm wall ms for phase
-    10)."""
+    of the checked runs, launches per query, per query the mesh answer's
+    digest, exchanged bytes, engine, warm wall ms and whether it scanned
+    for phase 10, and the scan kernel's launches in the checked runs)."""
     import torch
     from rayforce_tpu_torch import Runtime
     from rayforce_tpu_torch.core import symbols
@@ -621,7 +784,8 @@ def mesh_path(rows, device, single):
     from rayforce_tpu_torch.tools.g1 import MESH_QUERIES, QUERIES, \
         g1_table, skewed_id3
     from rayforce_tpu_torch.tools.jtables import force_columns
-    from rayforce_tpu_torch.tools.multiproc_worker import digest
+    from rayforce_tpu_torch.tools.multiproc_worker import count_scans, \
+        digest
 
     def no_fallback(e):
         raise AssertionError(f"device path fell back to the host: {e!r}")
@@ -665,23 +829,28 @@ def mesh_path(rows, device, single):
         if m is None or m.n != MESH_SHARDS:
             raise AssertionError(f"no {MESH_SHARDS}-shard mesh: {m}")
         results, per_query, stats, peak = {}, {}, {}, {}
-        psort.LAUNCHES["radix_sort"] = 0
+        scans, scan_per_query = {}, {}
+        psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["seg_scan"] = 0
         for name, q in queries.items():
-            before = psort.LAUNCHES["radix_sort"]
+            before = dict(psort.LAUNCHES)
             dist.reset_stats()
             sel.last_profile.clear()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
-            results[name] = rt.eval_str(q)
-            _columns(results[name], name)
+            with count_scans(scans):
+                results[name] = rt.eval_str(q)
+                _columns(results[name], name)
             torch.cuda.synchronize()
             peak[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
             got = _mesh_engine(sel.last_profile)
             if got != MESH_ENGINES[name]:
                 raise AssertionError(f"{name}: mesh engine {got}, not "
                                      f"{MESH_ENGINES[name]}")
-            per_query[name] = psort.LAUNCHES["radix_sort"] - before
+            per_query[name] = psort.LAUNCHES["radix_sort"] - \
+                before["radix_sort"]
+            scan_per_query[name] = psort.LAUNCHES["seg_scan"] - \
+                before["seg_scan"]
             if per_query[name] <= 0:
                 raise AssertionError(f"{name}: the CUDA sort never launched")
             stats[name] = dict(dist.stats)
@@ -690,6 +859,8 @@ def mesh_path(rows, device, single):
                 raise AssertionError(f"{name}: no mesh kernel ran")
         torch.cuda.synchronize()
         launches = psort.LAUNCHES["radix_sort"]
+        scan_launches = scan_report("mesh", scan_per_query, scans,
+                                    SCAN_QUERIES["mesh"])
 
         answers = {}
         for name, q in queries.items():
@@ -708,7 +879,8 @@ def mesh_path(rows, device, single):
                              "engine": MESH_ENGINES[name],
                              "exchanged_bytes":
                              stats[name]["exchanged_bytes"],
-                             "ms": statistics.median(walls)}
+                             "ms": statistics.median(walls),
+                             "scans": scan_per_query[name] > 0}
             phase("mesh_ms", query=name, engine=MESH_ENGINES[name],
                   shards=MESH_SHARDS, groups=groups,
                   median_ms=statistics.median(runs), runs=runs,
@@ -718,7 +890,7 @@ def mesh_path(rows, device, single):
                   launches=per_query[name], peak_mb=round(peak[name], 1),
                   equals_single_device=True, bit_identical=True,
                   cards=len(set(m.devices)))
-        return launches, per_query, answers
+        return launches, per_query, answers, scan_launches
     finally:
         os.environ.pop("RAYFORCE_MESH", None)
         dev._mesh_state.update({"mesh": None, "checked": False})
@@ -782,12 +954,15 @@ def join_path(rows, device):
     through the port's Runtime on bench.py's join tables and hold each
     against the host path and against a second card run. Returns
     (launches of the run, launches per query, the sort calls of each
-    query as (words, n_keys, perm), the Runtime, the tables)."""
+    query as (words, n_keys, perm), the Runtime, the tables, the scan
+    calls of each query as (ids, values, op, reverse), the scan kernel's
+    launches in the run)."""
     import numpy as np
     import torch
     from rayforce_tpu_torch import Runtime
     from rayforce_tpu_torch.core import symbols
     from rayforce_tpu_torch.core.obj import col_by_name, to_np
+    from rayforce_tpu_torch.engine import groupby as G
     from rayforce_tpu_torch.engine import join as ej
     from rayforce_tpu_torch.engine import psort
     from rayforce_tpu_torch.engine import select as sel
@@ -795,6 +970,7 @@ def join_path(rows, device):
     from rayforce_tpu_torch.ops import join as oj
     from rayforce_tpu_torch.tools.jtables import JOIN_QUERIES, \
         force_columns, join_tables
+    from rayforce_tpu_torch.tools.multiproc_worker import count_scans
 
     t0 = time.perf_counter()
     rt = Runtime()
@@ -815,37 +991,49 @@ def join_path(rows, device):
         torch.cuda.synchronize()
         return out, lanes
 
-    per_query, results, calls = {}, {}, {}
-    real = psort.sort_i32_cuda
+    per_query, results, calls, scan_calls = {}, {}, {}, {}
+    scans, scan_per_query = {}, {}
+    real, real_scan = psort.sort_i32_cuda, G.seg_scan_cuda
 
     def recording(words, n_keys=1, skipped=None, perm=False):
         calls[current].append((list(words), n_keys, perm))
         return real(words, n_keys, skipped, perm)
 
-    psort.sort_i32_cuda = recording
-    psort.LAUNCHES["radix_sort"] = 0
+    def recording_scan(seg_ids, vals, op, reverse=False):
+        scan_calls[current].append((seg_ids, vals, op, reverse))
+        return real_scan(seg_ids, vals, op, reverse)
+
+    psort.sort_i32_cuda, G.seg_scan_cuda = recording, recording_scan
+    psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["seg_scan"] = 0
     try:
-        for current, (q, engine) in JOIN_QUERIES.items():
-            calls[current] = []
-            before = psort.LAUNCHES["radix_sort"]
-            ej.last_profile.clear()
-            es.last_profile.clear()
-            if current == "aj":
-                base_mb = torch.cuda.memory_allocated() / 2**20
-                torch.cuda.reset_peak_memory_stats()
-            results[current] = run(q)
-            if current == "aj":
-                peak_mb = torch.cuda.max_memory_allocated() / 2**20
-            got = (ej.last_profile or es.last_profile).get("engine")
-            if got != engine:
-                raise AssertionError(f"{current}: engine {got}, not {engine}")
-            per_query[current] = psort.LAUNCHES["radix_sort"] - before
-            if per_query[current] <= 0:
-                raise AssertionError(f"{current}: the CUDA sort never "
-                                     "launched")
+        with count_scans(scans):
+            for current, (q, engine) in JOIN_QUERIES.items():
+                calls[current], scan_calls[current] = [], []
+                before = dict(psort.LAUNCHES)
+                ej.last_profile.clear()
+                es.last_profile.clear()
+                if current == "aj":
+                    base_mb = torch.cuda.memory_allocated() / 2**20
+                    torch.cuda.reset_peak_memory_stats()
+                results[current] = run(q)
+                if current == "aj":
+                    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+                got = (ej.last_profile or es.last_profile).get("engine")
+                if got != engine:
+                    raise AssertionError(f"{current}: engine {got}, not "
+                                         f"{engine}")
+                per_query[current] = psort.LAUNCHES["radix_sort"] - \
+                    before["radix_sort"]
+                scan_per_query[current] = psort.LAUNCHES["seg_scan"] - \
+                    before["seg_scan"]
+                if per_query[current] <= 0:
+                    raise AssertionError(f"{current}: the CUDA sort never "
+                                         "launched")
     finally:
-        psort.sort_i32_cuda = real
+        psort.sort_i32_cuda, G.seg_scan_cuda = real, real_scan
     launches = psort.LAUNCHES["radix_sort"]
+    scan_launches = scan_report("join", scan_per_query, scans,
+                                SCAN_QUERIES["join"])
 
     for name, (q, engine) in JOIN_QUERIES.items():
         out, lanes = results[name]
@@ -899,7 +1087,7 @@ def join_path(rows, device):
             # device memory in use before aj's run and at its peak
             r["base_mb"], r["peak_mb"] = round(base_mb, 1), round(peak_mb, 1)
         phase("join_ms", **r)
-    return launches, per_query, calls, rt, tables
+    return launches, per_query, calls, rt, tables, scan_calls, scan_launches
 
 
 # the f64 lanes of the window joins, held to the host path within a
@@ -948,7 +1136,8 @@ def wjoin_path(rt, tables):
     """Drive the window joins (tools/jtables.py WJOIN_QUERIES) through the
     port's Runtime on bench.py's join tables and hold each against the
     host path and a second card run. Returns (launches of the run,
-    launches per query, the sort calls of each query)."""
+    launches per query, the sort calls of each query, the scan kernel's
+    launches in the run)."""
     import torch
     from rayforce_tpu_torch.core import symbols
     from rayforce_tpu_torch.core.obj import to_np
@@ -957,6 +1146,7 @@ def wjoin_path(rt, tables):
     from rayforce_tpu_torch.engine import wjoin as ew
     from rayforce_tpu_torch.tools.jtables import WJOIN_QUERIES, \
         force_columns
+    from rayforce_tpu_torch.tools.multiproc_worker import count_scans
 
     def run(q):
         out = rt.eval_str(q)
@@ -971,30 +1161,36 @@ def wjoin_path(rt, tables):
         calls[current].append((list(words), n_keys, perm))
         return real(words, n_keys, skipped, perm)
 
+    scans, scan_per_query = {}, {}
     psort.sort_i32_cuda = recording
-    psort.LAUNCHES["radix_sort"] = 0
+    psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["seg_scan"] = 0
     try:
-        for current, q in WJOIN_QUERIES.items():
-            calls[current] = []
-            before = psort.LAUNCHES["radix_sort"]
-            ew.last_profile.clear()
-            if current == "wj0":
-                base_mb = torch.cuda.memory_allocated() / 2**20
-                torch.cuda.reset_peak_memory_stats()
-            results[current] = run(q)
-            if current == "wj0":
-                peak_mb = torch.cuda.max_memory_allocated() / 2**20
-            got = ew.last_profile.get("engine")
-            if got != "device-wjoin":
-                raise AssertionError(f"{current}: engine {got}, not "
-                                     "device-wjoin")
-            per_query[current] = psort.LAUNCHES["radix_sort"] - before
-            if per_query[current] <= 0:
-                raise AssertionError(f"{current}: the CUDA sort never "
-                                     "launched")
+        with count_scans(scans):
+            for current, q in WJOIN_QUERIES.items():
+                calls[current] = []
+                before = dict(psort.LAUNCHES)
+                ew.last_profile.clear()
+                if current == "wj0":
+                    base_mb = torch.cuda.memory_allocated() / 2**20
+                    torch.cuda.reset_peak_memory_stats()
+                results[current] = run(q)
+                if current == "wj0":
+                    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+                got = ew.last_profile.get("engine")
+                if got != "device-wjoin":
+                    raise AssertionError(f"{current}: engine {got}, not "
+                                         "device-wjoin")
+                per_query[current] = psort.LAUNCHES["radix_sort"] - \
+                    before["radix_sort"]
+                scan_per_query[current] = psort.LAUNCHES["seg_scan"] - \
+                    before["seg_scan"]
+                if per_query[current] <= 0:
+                    raise AssertionError(f"{current}: the CUDA sort never "
+                                         "launched")
     finally:
         psort.sort_i32_cuda = real
     launches = psort.LAUNCHES["radix_sort"]
+    scan_launches = scan_report("wjoin", scan_per_query, scans, ())
 
     for name, q in WJOIN_QUERIES.items():
         out, lanes = results[name]
@@ -1045,7 +1241,7 @@ def wjoin_path(rt, tables):
         if name == "wj0":
             r["base_mb"], r["peak_mb"] = round(base_mb, 1), round(peak_mb, 1)
         phase("join_ms", **r)
-    return launches, per_query, calls
+    return launches, per_query, calls, scan_launches
 
 
 # the exchanged bytes of each mesh join with no capacity retry, from the
@@ -1063,8 +1259,9 @@ def mesh_join_path(rows, device):
     against the same query with the mesh off (the single-device card
     answer, which phases 5 and 6 hold against the host path) and a
     second mesh run. Returns (launches of the checked mesh runs, the
-    launches per query, and per query the mesh answer's digest,
-    exchanged bytes, engine and warm wall ms for phase 10)."""
+    launches per query, per query the mesh answer's digest, exchanged
+    bytes, engine, warm wall ms and whether it scanned for phase 10, and
+    the scan kernel's launches in the checked mesh runs)."""
     import torch
     from rayforce_tpu_torch import Runtime
     from rayforce_tpu_torch.core import symbols
@@ -1079,7 +1276,8 @@ def mesh_join_path(rows, device):
     from rayforce_tpu_torch.tools.g1 import skewed_id3
     from rayforce_tpu_torch.tools.jtables import MESH_JOIN_QUERIES, \
         force_columns, join_tables
-    from rayforce_tpu_torch.tools.multiproc_worker import digest
+    from rayforce_tpu_torch.tools.multiproc_worker import count_scans, \
+        digest
 
     def no_fallback(e):
         raise AssertionError(f"device path fell back to the host: {e!r}")
@@ -1135,6 +1333,7 @@ def mesh_join_path(rows, device):
         return prof.get("engine")
 
     launches, per_query, answers = 0, {}, {}
+    scans, scan_per_query = {}, {}
     saved_bmax = dev._cfg["bcast_max"]
     try:
         for name, (q, want_engine, bmax) in MESH_JOIN_QUERIES.items():
@@ -1155,9 +1354,11 @@ def mesh_join_path(rows, device):
             dist.reset_stats()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
-            psort.LAUNCHES["radix_sort"] = 0
-            out, lanes = run(q)
+            psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["seg_scan"] = 0
+            with count_scans(scans):
+                out, lanes = run(q)
             per_query[name] = psort.LAUNCHES["radix_sort"]
+            scan_per_query[name] = psort.LAUNCHES["seg_scan"]
             launches += per_query[name]
             peak = (torch.cuda.max_memory_allocated() - base) / 2**20
             stats = dict(dist.stats)
@@ -1220,9 +1421,12 @@ def mesh_join_path(rows, device):
             answers["mj_" + name] = {
                 "digest": digest(out), "engine": got,
                 "exchanged_bytes": stats["exchanged_bytes"],
-                "ms": statistics.median(runs)}
+                "ms": statistics.median(runs),
+                "scans": scan_per_query[name] > 0}
             del out, lanes
-        return launches, per_query, answers
+        scan_launches = scan_report("mesh_join", scan_per_query, scans,
+                                    SCAN_QUERIES["mesh_join"])
+        return launches, per_query, answers, scan_launches
     finally:
         dev._cfg["bcast_max"] = saved_bmax
         set_mesh(0)
@@ -1240,9 +1444,10 @@ def multiproc_path(rows, answers):
     query of `answers` (phase 8's and 9's one-process mesh answers) once
     and twice more timed. Each query must run the one-process mesh's
     engine, note its exchanged bytes, launch the CUDA sort on every rank
-    and give its answer bit for bit (the digest of every column) on every
-    rank and every run. Returns (the ranks' sort launches of the checked
-    runs, per query)."""
+    (and the scan kernel, where the one-process mesh's run did) and give
+    its answer bit for bit (the digest of every column) on every rank and
+    every run. Returns (the ranks' sort launches of the checked runs, per
+    query, and their scan kernel launches)."""
     import torch
     from rayforce_tpu_torch.engine.device import backend_for
     from rayforce_tpu_torch.tools import multiproc_worker as W
@@ -1278,6 +1483,7 @@ def multiproc_path(rows, answers):
           seconds=seconds)
     queries = [{x["query"]: x for x in r if "query" in x} for r in recs]
     launches, per_query, faults = 0, {}, []
+    scans, scan_per_query = {}, {}
     for name, want in answers.items():
         got = [q[name] for q in queries]
         for rank, g in enumerate(got):
@@ -1296,7 +1502,13 @@ def multiproc_path(rows, answers):
             if g["launches"] <= 0:
                 faults.append(f"{name}: rank {rank} never launched the "
                               "CUDA sort")
+            if want["scans"] and g["seg_scan_launches"] <= 0:
+                faults.append(f"{name}: rank {rank} never launched the "
+                              "scan kernel")
+            for k, c in g["seg_scan_shapes"].items():
+                scans[k] = scans.get(k, 0) + c
         per_query[name] = sum(g["launches"] for g in got)
+        scan_per_query[name] = sum(g["seg_scan_launches"] for g in got)
         launches += per_query[name]
         mesh_ms = max(statistics.median(g["ms"]) for g in got)
         wire_ms = max(g["wire"]["seconds"] for g in got) * 1e3
@@ -1317,7 +1529,10 @@ def multiproc_path(rows, answers):
               bit_identical=all(g["reruns_equal"] for g in got))
     if faults:
         raise AssertionError("\n".join(faults))
-    return launches, per_query
+    scan_launches = scan_report(
+        "multiproc", scan_per_query, scans,
+        [name for name, want in answers.items() if want["scans"]])
+    return launches, per_query, scan_launches
 
 
 PARTS = 10
@@ -1551,6 +1766,8 @@ def main():
     sys.path.insert(0, HERE)
     from rayforce_tpu_torch.engine import cubuild, psort
     from rayforce_tpu_torch.engine import device as dev
+    from rayforce_tpu_torch.engine import groupby as G
+    from rayforce_tpu_torch.tools.sortprof import seg_scan_shapes
 
     # 1. card
     card = card_line()
@@ -1562,12 +1779,14 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})
 
-    # 2. build
+    # 2. build: one nvcc for each kernel family, all started together
     t0 = time.perf_counter()
+    cubuild.build(["radix_sort", "seg_scan"])
     psort._radix_lib()
-    phase("build", kernels="radix_sort",
+    G._seg_lib()
+    phase("build", kernels="radix_sort,seg_scan",
           seconds=round(time.perf_counter() - t0, 3),
-          nvcc_seconds=cubuild.build_seconds)
+          nvcc_seconds=json.dumps(cubuild.build_seconds))
 
     # 3. kernels against their plain versions
     gen = torch.Generator(device="cuda")
@@ -1579,10 +1798,20 @@ def main():
     times = time_sorts(psort, torch, gen)
     for r in times:
         phase("sort_time", **r)
+    t0 = time.perf_counter()
+    scan_cases = check_seg_scan(G, torch, gen)
+    phase("kernels", seg_scan="equal", sizes=list(SCAN_SIZES),
+          cases=scan_cases, max_abs_err=0,
+          seconds=round(time.perf_counter() - t0, 3))
+    scan_times = [time_scan(G, torch, *shape)
+                  for shape in seg_scan_shapes(torch, ROWS)]
+    for r in scan_times:
+        phase("seg_scan_time", **r)
 
     # 4. the main path at full size
-    main_launches, per_query, _ms, shapes, single = main_path(ROWS, "cuda")
-    phase("main_path", launches=main_launches,
+    main_launches, per_query, _ms, shapes, single, main_scans = \
+        main_path(ROWS, "cuda")
+    phase("main_path", launches=main_launches, seg_scan_launches=main_scans,
           per_query=json.dumps(per_query, separators=(",", ":")))
     phase("sort_shapes", calls=json.dumps(
         [{"rows": n, "key_words": k, "words": m, "launches": c}
@@ -1590,17 +1819,23 @@ def main():
         separators=(",", ":")))
 
     # 5. the joins and table sorts at the bench's sizes
-    join_launches, join_per_query, calls, rt, tables = join_path(ROWS,
-                                                                 "cuda")
-    phase("join_path", launches=join_launches,
+    join_launches, join_per_query, calls, rt, tables, scan_calls, \
+        join_scans = join_path(ROWS, "cuda")
+    phase("join_path", launches=join_launches, seg_scan_launches=join_scans,
           per_query=json.dumps(join_per_query, separators=(",", ":")))
     for r in time_join_sorts(psort, torch, calls):
         phase("sort_time", **r)
-    del calls
+    # lj scans the ids and values ij scans
+    for name in ("ij", "aj"):
+        for ids, vals, op, rev in scan_calls[name]:
+            r = time_scan(G, torch, name, ids, vals, op, rev)
+            scan_times.append(r)
+            phase("seg_scan_time", **r)
+    del calls, scan_calls
 
     # 6. the window joins on the same tables
-    wj_launches, wj_per_query, calls = wjoin_path(rt, tables)
-    phase("wjoin_path", launches=wj_launches,
+    wj_launches, wj_per_query, calls, wj_scans = wjoin_path(rt, tables)
+    phase("wjoin_path", launches=wj_launches, seg_scan_launches=wj_scans,
           per_query=json.dumps(wj_per_query, separators=(",", ":")))
     for r in time_join_sorts(psort, torch, calls):
         phase("sort_time", **r)
@@ -1614,24 +1849,27 @@ def main():
 
     # 8. the grouped selects over an 8-shard mesh on the card
     torch.cuda.empty_cache()
-    mesh_launches, mesh_per_query, answers = mesh_path(ROWS, "cuda",
-                                                       single)
+    mesh_launches, mesh_per_query, answers, mesh_scans = mesh_path(
+        ROWS, "cuda", single)
     phase("mesh_path", launches=mesh_launches, shards=MESH_SHARDS,
+          seg_scan_launches=mesh_scans,
           per_query=json.dumps(mesh_per_query, separators=(",", ":")))
     del single
     torch.cuda.empty_cache()
 
     # 9. the joins, table sorts and window joins over the 8-shard mesh
-    mj_launches, mj_per_query, mj_answers = mesh_join_path(ROWS, "cuda")
+    mj_launches, mj_per_query, mj_answers, mj_scans = mesh_join_path(
+        ROWS, "cuda")
     phase("mesh_join_path", launches=mj_launches, shards=MESH_SHARDS,
+          seg_scan_launches=mj_scans,
           per_query=json.dumps(mj_per_query, separators=(",", ":")))
     answers.update(mj_answers)
     torch.cuda.empty_cache()
 
     # 10. the same mesh over MP_RANKS processes
-    mp_launches, mp_per_query = multiproc_path(ROWS, answers)
+    mp_launches, mp_per_query, mp_scans = multiproc_path(ROWS, answers)
     phase("multiproc_path", launches=mp_launches, ranks=MP_RANKS,
-          shards=MESH_SHARDS,
+          shards=MESH_SHARDS, seg_scan_launches=mp_scans,
           per_query=json.dumps(mp_per_query, separators=(",", ":")))
 
     # 11. the flagship step
@@ -1640,6 +1878,7 @@ def main():
 
     # 12. report
     main = next(r for r in times if r["shape"] == "sortagg_2w")
+    scan = next(r for r in scan_times if r["shape"] == "q5_i64_sum")
     kernels = [{
         "name": "radix_sort",
         "route": "cuda",
@@ -1655,6 +1894,20 @@ def main():
         "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
         "library_ms": main["library_ms"],
+    }, {
+        "name": "seg_scan",
+        "route": "cuda",
+        "source": "rayforce_tpu_torch/engine/csrc/seg_scan.cu",
+        "replaces": "rayforce_tpu/engine/groupby.py:281 (_seg_scan, jnp "
+                    "under jax.jit)",
+        "launches": main_scans + join_scans + wj_scans + mesh_scans +
+        mj_scans + mp_scans,
+        "max_abs_err": 0,
+        "ms": scan["ms"],
+        "plain_ms": scan["plain_ms"],
+        "bound_ms": scan["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": scan["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

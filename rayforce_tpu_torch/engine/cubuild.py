@@ -4,7 +4,8 @@ Each kernel family is one `csrc/<name>.cu` with a plain `extern "C"`
 launcher. At first use it is compiled with `nvcc -arch=sm_90a` into
 `rayforce_tpu_torch/_build/lib<name>.so` (rebuilt when the source is
 newer than the library, under a file lock so that two processes never
-build at once) and loaded with ctypes. Nothing here runs at import:
+build at once) and loaded with ctypes. `build` starts one nvcc for each
+library it is given, all at once. Nothing here runs at import:
 machines without `nvcc` import this module freely and never call it.
 A failed build raises `DeviceError` with nvcc's stderr, and so does a
 library that does not load.
@@ -39,18 +40,47 @@ def _nvcc() -> str:
                       "PATH); the CUDA kernels are built from source")
 
 
-def _build(name: str, src: str, lib: str) -> None:
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-O3", "-std=c++17",
-           "-gencode=arch=compute_90a,code=sm_90a",
-           "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise DeviceError(f"nvcc failed building {name} "
-                          f"(rc {r.returncode}):\n{r.stderr}")
-    os.replace(tmp, lib)
-    build_seconds[name] = time.perf_counter() - t0
+def _paths(name: str):
+    return (os.path.join(CSRC, f"{name}.cu"),
+            os.path.join(BUILD_DIR, f"lib{name}.so"))
+
+
+def build(names) -> None:
+    """Build every library of `names` that is missing or older than its
+    source, one nvcc each, all started together."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    locks, jobs = [], []
+    try:
+        for name in names:
+            lk = open(os.path.join(BUILD_DIR, f"{name}.lock"), "w")
+            fcntl.flock(lk, fcntl.LOCK_EX)
+            locks.append(lk)
+            src, lib = _paths(name)
+            if os.path.exists(lib) and \
+                    os.path.getmtime(lib) >= os.path.getmtime(src):
+                continue
+            tmp = f"{lib}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), "-O3", "-std=c++17",
+                   "-gencode=arch=compute_90a,code=sm_90a",
+                   "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src]
+            jobs.append((name, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True), tmp, lib, time.perf_counter()))
+        for name, proc, tmp, lib, t0 in jobs:
+            _out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise DeviceError(f"nvcc failed building {name} "
+                                  f"(rc {proc.returncode}):\n{err}")
+            os.replace(tmp, lib)
+            build_seconds[name] = time.perf_counter() - t0
+    finally:
+        for _name, proc, *_rest in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for lk in locks:
+            fcntl.flock(lk, fcntl.LOCK_UN)
+            lk.close()
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -58,17 +88,8 @@ def load(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    src = os.path.join(CSRC, f"{name}.cu")
-    path = os.path.join(BUILD_DIR, f"lib{name}.so")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lk:
-        fcntl.flock(lk, fcntl.LOCK_EX)
-        try:
-            if not os.path.exists(path) or \
-                    os.path.getmtime(path) < os.path.getmtime(src):
-                _build(name, src, path)
-        finally:
-            fcntl.flock(lk, fcntl.LOCK_UN)
+    build([name])
+    path = _paths(name)[1]
     try:
         lib = ctypes.CDLL(path)
     except OSError as e:

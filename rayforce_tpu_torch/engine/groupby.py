@@ -18,16 +18,22 @@
   take one stable sort of the codes through the psort entry and the
   segmented scan below, a fixed order.
 - The inclusive segmented min/max/sum scan over runs of equal segment
-  ids (sort-agg, wide, and the f64 sums above).
+  ids (sort-agg, wide, the joins, the mesh, and the f64 sums above):
+  on a CUDA tensor the hand-written kernel of `csrc/seg_scan.cu`, on a
+  CPU tensor its plain version `seg_scan_plain`.
 - `Packer` / `unpack`: every output lane of a dense plan in ONE i64
   buffer, so the host pays one device-to-host transfer per query.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from .psort import f64_from_order, f64_order, sort_lex
+from .device import DeviceError
+from .psort import LAUNCHES, _LAUNCHES_LOCK, f64_from_order, f64_order, \
+    sort_lex
 
 LIMB_BITS = 8
 LIMB_MASK = (1 << LIMB_BITS) - 1
@@ -219,13 +225,19 @@ def _apply(op, a, b):
     return a + b
 
 
-def _seg_scan(seg_ids, vals, op):
-    """Inclusive segmented scan over runs of equal seg_ids (sorted
-    ascending). Two-level log doubling: log2(B) shift+op steps inside
-    1024-wide blocks, then a block-summary scan and one combine pass —
-    the same blocking as the TPU package's scan, so sums add in the
-    same order. vals is (n,) or (n, L): L lanes scanned at once, each
-    exactly as on its own."""
+def seg_scan_plain(seg_ids, vals, op, reverse=False):
+    """Plain PyTorch version of the segmented scan. Two-level log
+    doubling: log2(B) shift+op steps inside 1024-wide blocks, then a
+    block-summary scan and one combine pass — the same blocking as the
+    TPU package's scan, so sums add in the same order. vals is (n,) or
+    (n, L): L lanes scanned at once, each exactly as on its own.
+    reverse: the scan of the flipped arrays, flipped back."""
+    if reverse:
+        return _scan_forward(seg_ids.flip(0), vals.flip(0), op).flip(0)
+    return _scan_forward(seg_ids, vals, op)
+
+
+def _scan_forward(seg_ids, vals, op):
     ident = _identity_for(vals, op)
     n = vals.shape[0]
     lanes = tuple(vals.shape[1:])
@@ -269,16 +281,103 @@ def _seg_scan(seg_ids, vals, op):
     return m.reshape((R * _SEG_B,) + lanes)[:n]
 
 
-def seg_doubling_min(seg_ids, vals):
-    return _seg_scan(seg_ids, vals, "min")
+# (restype, argtypes) of every extern "C" function of csrc/seg_scan.cu;
+# tests/test_torch_seg_scan.py holds this table against the source
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+ARGTYPES = {
+    "rf_seg_scan_block": (_I32, []),
+    "rf_seg_scan_scratch_bytes": (_I64, [_I64, _I32, _I32]),
+    "rf_seg_scan": (_I32, [_P, _I32, _I64, _P, _I32, _I64, _I64, _P, _I64,
+                           _I32, _I32, _I32, _P, _P]),
+}
+_KINDS = {torch.int32: 0, torch.int64: 1, torch.float64: 2}
+_OPS = {"min": 0, "max": 1, "sum": 2}
+
+_lib = None
 
 
-def seg_doubling_max(seg_ids, vals):
-    return _seg_scan(seg_ids, vals, "max")
+def _seg_lib():
+    global _lib
+    if _lib is None:
+        from . import cubuild
+        lib = cubuild.load("seg_scan")
+        try:
+            for name, (res, args) in ARGTYPES.items():
+                fn = getattr(lib, name)
+                fn.restype = res
+                fn.argtypes = args
+        except AttributeError as e:
+            raise DeviceError(f"segmented scan library: {e}") from e
+        if lib.rf_seg_scan_block() != _SEG_B:
+            raise DeviceError(f"segmented scan library: blocks of "
+                              f"{lib.rf_seg_scan_block()} rows, not {_SEG_B}")
+        _lib = lib
+    return _lib
 
 
-def seg_doubling_sum(seg_ids, vals):
-    return _seg_scan(seg_ids, vals, "sum")
+def seg_scan_cuda(seg_ids, vals, op, reverse=False):
+    """The CUDA segmented scan (csrc/seg_scan.cu) of CUDA tensors: bit
+    for bit `seg_scan_plain` on the same card, in three launches. ids
+    (i32 or i64) and values (i32, i64 or f64; (n,) or (n, L)) are read
+    in place, at their strides. Any failure to build, load, allocate or
+    launch raises DeviceError."""
+    n = int(vals.shape[0])
+    if op not in _OPS or vals.dtype not in _KINDS or vals.dim() > 2 or \
+            seg_ids.dtype not in (torch.int32, torch.int64) or \
+            seg_ids.shape != (n,) or seg_ids.device != vals.device:
+        raise ValueError(f"seg_scan: {op!r} of {vals.dtype} "
+                         f"{tuple(vals.shape)} on {vals.device} by ids "
+                         f"{seg_ids.dtype} {tuple(seg_ids.shape)} on "
+                         f"{seg_ids.device}")
+    lib = _seg_lib()
+    out = torch.empty(vals.shape, dtype=vals.dtype, device=vals.device)
+    if out.numel() == 0:
+        return out
+    L = 1 if vals.dim() == 1 else int(vals.shape[1])
+    try:
+        nbytes = lib.rf_seg_scan_scratch_bytes(n, L, vals.element_size())
+        scratch = torch.empty(-(-nbytes // 8), dtype=torch.int64,
+                              device=vals.device)
+        with torch.cuda.device(vals.device):
+            stream = torch.cuda.current_stream(vals.device).cuda_stream
+            rc = lib.rf_seg_scan(
+                seg_ids.data_ptr(), _KINDS[seg_ids.dtype], seg_ids.stride(0),
+                vals.data_ptr(), _KINDS[vals.dtype], vals.stride(0),
+                vals.stride(-1), out.data_ptr(), n, L, _OPS[op],
+                int(reverse), scratch.data_ptr(), stream)
+    except Exception as e:
+        raise DeviceError(f"seg_scan: {type(e).__name__}: {e}") from e
+    if rc != 0:
+        raise DeviceError(f"seg_scan launch failed: cudaError {rc}")
+    with _LAUNCHES_LOCK:
+        LAUNCHES["seg_scan"] += 1
+    return out
+
+
+def _seg_scan(seg_ids, vals, op, reverse=False):
+    """Inclusive segmented scan over runs of equal seg_ids (sorted
+    ascending): on a CUDA tensor the hand-written kernel, on a CPU
+    tensor the plain version; nothing in between. reverse=True scans
+    from each row to its run's end (the scan of the flipped arrays,
+    flipped back), so a run's first row holds its total."""
+    dev = vals.device
+    if dev.type == "cuda":
+        return seg_scan_cuda(seg_ids, vals, op, reverse)
+    if dev.type == "cpu":
+        return seg_scan_plain(seg_ids, vals, op, reverse)
+    raise DeviceError(f"seg_scan: no scan for device {dev}")
+
+
+def seg_doubling_min(seg_ids, vals, reverse=False):
+    return _seg_scan(seg_ids, vals, "min", reverse)
+
+
+def seg_doubling_max(seg_ids, vals, reverse=False):
+    return _seg_scan(seg_ids, vals, "max", reverse)
+
+
+def seg_doubling_sum(seg_ids, vals, reverse=False):
+    return _seg_scan(seg_ids, vals, "sum", reverse)
 
 
 # -- output packing -----------------------------------------------------------

@@ -422,7 +422,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
                         torch.zeros(v.shape, dtype=BOOL, device=d)
                 xm = torch.where(nn, np.inf, xv)
                 fmin = G.seg_doubling_min(sc, xm)
-                bmin = G.seg_doubling_min(sc.flip(0), xm.flip(0)).flip(0)
+                bmin = G.seg_doubling_min(sc, xm, reverse=True)
                 c = torch.minimum(fmin, bmin)
                 dd = torch.where(nn | ~torch.isfinite(c), 0.0, xv - c)
                 segres[("devs", cid)] = G.seg_doubling_sum(sc, dd)[ea]

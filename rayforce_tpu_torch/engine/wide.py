@@ -241,16 +241,15 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
         # (already known) boundary rows with no boundary compaction
         segid = torch.cumsum(flags.to(I32) + (~valid).to(I32), 0,
                              dtype=I32)
-        rsegid = segid.flip(0)
 
         def rsum(x):
-            return G.seg_doubling_sum(rsegid, x.flip(0)).flip(0)
+            return G.seg_doubling_sum(segid, x, reverse=True)
 
         def rmin(x):
-            return G.seg_doubling_min(rsegid, x.flip(0)).flip(0)
+            return G.seg_doubling_min(segid, x, reverse=True)
 
         def rmax(x):
-            return G.seg_doubling_max(rsegid, x.flip(0)).flip(0)
+            return G.seg_doubling_max(segid, x, reverse=True)
 
         counts = rsum(torch.ones(N, dtype=I64, device=d))
         pos_row = sw[pos_word] & posmask

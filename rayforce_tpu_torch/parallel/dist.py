@@ -376,21 +376,21 @@ def _run_end(sc):
                       torch.ones(1, dtype=BOOL, device=sc.device)])
 
 
-def _rscan(rs, x, op):
-    """Segmented scan from each row to its segment's end (rs: the
-    reversed segment ids), so a segment's first row holds its total —
+def _rscan(seg, x, op):
+    """Segmented scan from each row to its segment's end (seg: the
+    segment ids in row order), so a segment's first row holds its total —
     the reference's reversed `seg_doubling_*` layout and summation
     order."""
-    return G._seg_scan(rs, x.flip(0), op).flip(0)
+    return G._seg_scan(seg, x, op, reverse=True)
 
 
-def _rscan_lanes(rs, ops, xs):
+def _rscan_lanes(seg, ops, xs):
     """`_rscan` of each lane xs[i] with its op: the lanes of one op are
     scanned together, as the columns of one (n, L) scan."""
     out = [None] * len(xs)
     for op in set(ops):
         idx = [i for i, o in enumerate(ops) if o == op]
-        res = _rscan(rs, torch.stack([xs[i] for i in idx], 1), op)
+        res = _rscan(seg, torch.stack([xs[i] for i in idx], 1), op)
         for j, i in enumerate(idx):
             out[i] = res[:, j]
     return out
@@ -732,8 +732,8 @@ def dist_wide_groupby(mesh: Mesh, rows_local: int, out_cap: int,
         valid = skey != KEY_MAX
         flags = valid & _new_run(sc)
         is_last = valid & _run_end(sc)
-        rs = torch.cumsum(flags.to(I32) + (~valid).to(I32), 0,
-                          dtype=I32).flip(0)
+        seg = torch.cumsum(flags.to(I32) + (~valid).to(I32), 0,
+                           dtype=I32)
         gid = (skey & posmask) + me * n          # global row id
         tf = _compact_targets(flags, C)
         tl = _compact_targets(is_last, C)
@@ -746,7 +746,7 @@ def dist_wide_groupby(mesh: Mesh, rows_local: int, out_cap: int,
         scan = [i for i, op in enumerate(lane_ops)
                 if op not in ("first", "last")]
         red = dict(zip(scan, _rscan_lanes(
-            rs, [lane_ops[i] for i in scan], [svals[i] for i in scan])))
+            seg, [lane_ops[i] for i in scan], [svals[i] for i in scan])))
         for i, (op, sv) in enumerate(zip(lane_ops, svals)):
             if op == "first":
                 v = _place(sv, tf, C, 0.0)
@@ -771,8 +771,8 @@ def dist_wide_groupby(mesh: Mesh, rows_local: int, out_cap: int,
         mslanes = [x[perm] for x in rlanes]
         mvalid = msc != KEY_MAX
         mflags = mvalid & _new_run(msc)
-        mrs = torch.cumsum(mflags.to(I32) + (~mvalid).to(I32), 0,
-                           dtype=I32).flip(0)
+        mseg = torch.cumsum(mflags.to(I32) + (~mvalid).to(I32), 0,
+                            dtype=I32)
         if has_last:
             # (code, -last-row id): its run heads are the partials with
             # the largest last-row id; the code sequence, so the run
@@ -781,7 +781,8 @@ def dist_wide_groupby(mesh: Mesh, rows_local: int, out_cap: int,
         scan = [i for i, op in enumerate(lane_ops)
                 if op not in ("first", "last")]
         red = dict(zip(scan, _rscan_lanes(
-            mrs, [lane_ops[i] for i in scan], [mslanes[i] for i in scan])))
+            mseg, [lane_ops[i] for i in scan],
+            [mslanes[i] for i in scan])))
         tot = [ml if op == "first" else rl[perm2] if op == "last"
                else red[i]
                for i, (op, ml, rl) in enumerate(zip(lane_ops, mslanes,
@@ -961,9 +962,9 @@ def dist_med_groupby(mesh: Mesh, rows_local: int, cap: int,
                 end = _place(iota, _compact_targets(mvalid & _run_end(sc),
                                                     out_cap), out_cap, 0)
                 gcode = _place(sc, tf, out_cap, -1)
-                rs = torch.cumsum(mflags.to(I32) + (~mvalid).to(I32), 0,
-                                  dtype=I32).flip(0)
-                fidx = _place(_rscan(rs, sr, "min"), tf, out_cap, KEY_MAX)
+                seg = torch.cumsum(mflags.to(I32) + (~mvalid).to(I32),
+                                   0, dtype=I32)
+                fidx = _place(_rscan(seg, sr, "min"), tf, out_cap, KEY_MAX)
                 my_ng = mflags.sum()
             # same key -> identical code order and boundaries
             nn = torch.cat([iota.new_zeros(1),
@@ -1304,9 +1305,9 @@ def dist_eq_probe(mesh: Mesh, n_total_l: int, cap_l: int, cap_r: int,
         (cs,), _ = sort_lex([torch.where(keys >= 0, keys, KEY_MAX)])
         cvalid = cs != KEY_MAX
         flags = cvalid & _new_run(cs)
-        rs = torch.cumsum(flags.to(I32) + (~cvalid).to(I32), 0,
-                          dtype=I32).flip(0)
-        runlen = _rscan(rs, torch.ones_like(cs), "sum")
+        seg = torch.cumsum(flags.to(I32) + (~cvalid).to(I32), 0,
+                           dtype=I32)
+        runlen = _rscan(seg, torch.ones_like(cs), "sum")
         heavy = flags & (runlen > theta)
         _h, (hc,) = sort_lex([torch.where(heavy, -runlen, KEY_MAX)],
                              ops=[torch.where(heavy, cs, KEY_MAX)])

@@ -13,16 +13,19 @@ the collectives on seeded shards (`collective_cases`), then every query of
 and the mesh group-by, the medians, the join probes, the table sorts and
 the window joins, over tools/jtables.py's tables at `--rows` rows. Each
 result is printed as one line `MP {json}`: the engine it ran, the
-modelled exchanged bytes (parallel/dist.py `stats`), the radix sort
-launches, the formatted output, a digest of every column's bytes, the
+modelled exchanged bytes (parallel/dist.py `stats`), the radix sort's
+and the segmented scan's launches and the scan's calls by shape, the
+formatted output, a digest of every column's bytes, the
 wall times and whether every rerun gave the same bytes. The last line
 is MULTIPROC_OK.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
+import math
 import os
 import socket
 import subprocess
@@ -153,6 +156,29 @@ def timed(rt, q, device):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+@contextlib.contextmanager
+def count_scans(shapes):
+    """Count, in `shapes`, each call of the segmented scan by "rows x
+    lanes dtype op", with " rev" added for reverse and " plain" for a
+    call of the plain version."""
+    from ..engine import groupby as G
+    real = G.seg_scan_cuda, G.seg_scan_plain
+
+    def counted(fn, tag):
+        def f(seg_ids, vals, op, reverse=False):
+            k = f"{int(vals.shape[0])}x{math.prod(vals.shape[1:])} " \
+                f"{str(vals.dtype)[6:]} {op}{' rev' if reverse else ''}{tag}"
+            shapes[k] = shapes.get(k, 0) + 1
+            return fn(seg_ids, vals, op, reverse)
+        return f
+    G.seg_scan_cuda = counted(real[0], "")
+    G.seg_scan_plain = counted(real[1], " plain")
+    try:
+        yield shapes
+    finally:
+        G.seg_scan_cuda, G.seg_scan_plain = real
+
+
 def run_query(rts, name, reps=1, device="cpu") -> dict:
     """QUERIES[name] once, recorded, then `reps` timed reruns, each held
     to the first run's bytes."""
@@ -175,13 +201,17 @@ def run_query(rts, name, reps=1, device="cpu") -> dict:
                      ew.last_profile):
             prof.clear()
         dist.reset_stats()
-        psort.LAUNCHES["radix_sort"] = 0
-        out, first_ms = timed(rt, q, device)
+        psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["seg_scan"] = 0
+        shapes = {}
+        with count_scans(shapes):
+            out, first_ms = timed(rt, q, device)
         rec = {"query": name,
                "engine": engine_of(kind),
                "exchanged_bytes": dist.stats["exchanged_bytes"],
                "kernel_calls": dist.stats["kernel_calls"],
                "launches": psort.LAUNCHES["radix_sort"],
+               "seg_scan_launches": psort.LAUNCHES["seg_scan"],
+               "seg_scan_shapes": shapes,
                "digest": digest(out), "out": format_top(out),
                "rows": len(out)}
         del out

@@ -6,7 +6,7 @@ card.
 
     python -m rayforce_tpu_torch.tools.sortprof [--rows N] [--out DIR]
         [--queries q1,q7,ij,aj,wj,wj0,...] [--no-sort] [--no-queries]
-        [--mesh N]
+        [--seg-scan] [--mesh N]
 
 With --mesh N every query runs on an N-shard mesh on the card
 (RAYFORCE_MESH=N; its shards share the card): the grouped selects, and
@@ -22,11 +22,20 @@ key words with one payload word (q7). For each it prints the device
 time of every launch of one sort in order (memset, histogram, plan,
 each pass, gathers) and the sums by kernel name.
 
-Prints, per profiled region, the device time by kernel name and the
-region's wall time, device-busy time and idle share, and writes the
-Chrome traces under --out; per query also the radix sort's launches in
-one run. A join, table sort or window join's run forces every lazy
-output column.
+With --seg-scan the segmented scan (engine/csrc/seg_scan.cu) is
+profiled too, at chip_smoke.py's [seg_scan_time] shapes: at --rows rows
+over sorted i32 ids of 10^5 codes, i32 sum, f64 sum (one lane and an
+(n, 1) lane), i64 sum, i64 max (and reversed, as q7 scans), i32 min;
+ij's i64 min over 1.1 x --rows rows of i32 ids with runs of about 5.5
+rows, and aj's i64 max over 3 x --rows rows of i64 ids with runs of about
+1667 rows. For each it prints the device time of every launch of one
+scan (block pass, tail pass, fix-up) and the plain version's device time.
+
+Prints, per profiled region, the device time by kernel name (the top 14
+and every seg_scan kernel) and the region's wall time, device-busy time
+and idle share, and writes the Chrome traces under --out; per query
+also the radix sort's and the scan's launches in one run. A join,
+table sort or window join's run forces every lazy output column.
 Numbers are only meaningful on the card.
 """
 from __future__ import annotations
@@ -62,30 +71,37 @@ def _report(tag, prof, wall_ms, reps, out):
     print(f"== {tag}: wall {wall_ms:.3f} ms/run, device busy "
           f"{busy:.3f} ms/run, idle share "
           f"{max(0.0, 1 - busy / wall_ms):.3f}")
-    for name, ms, calls in rows[:14]:
-        print(f"   {ms / reps:9.4f} ms/run  {calls // reps:4d}x  {name[:90]}")
+    for i, (name, ms, calls) in enumerate(rows):
+        if i < 14 or "seg_scan::" in name:
+            print(f"   {ms / reps:9.4f} ms/run  {calls // reps:4d}x  "
+                  f"{name[:90]}")
     if out:
         prof.export_chrome_trace(os.path.join(out, f"{tag}.json"))
 
 
-def _launch_split(fn):
+def _launch_split(fn, tries=3):
     """[(kernel or memset name, device us)] of one call of fn, in launch
-    order, from the profiler's trace."""
+    order, from the profiler's trace. A trace that comes back with no
+    device event (the profiler drops one now and then) is taken again,
+    up to `tries` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    rows = sorted((e["ts"], e["name"], e["dur"]) for e in events
-                  if e.get("cat") in ("kernel", "gpu_memset")
-                  and "dur" in e)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        rows = sorted((e["ts"], e["name"], e["dur"]) for e in events
+                      if e.get("cat") in ("kernel", "gpu_memset")
+                      and "dur" in e)
+        if rows:
+            break
     return [(name, dur) for _ts, name, dur in rows]
 
 
@@ -108,6 +124,48 @@ def _sort_shapes(torch, psort, n):
         [rnd(0, 100_000_000)]
     return [("key_only_1w", [key], 1), ("sortagg_2w", [key, p1], 1),
             ("sortagg_3w", [key, p1, p2], 1), ("wide_q7", wide, 4)]
+
+
+def seg_scan_shapes(torch, n):
+    """The main path's scan shapes at n rows, on sorted i32 ids of 10^5
+    codes (id3's runs): [(tag, ids, values, op, reverse)]. chip_smoke.py
+    times the same."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    ids = torch.sort(_ints(torch, gen, n, 100_000, torch.int32)).values
+    f = torch.rand(n, generator=gen, device="cuda",
+                   dtype=torch.float64) * 100
+    i64 = _ints(torch, gen, n, 2**40, torch.int64)
+    return [("q2_i32_sum", ids, _ints(torch, gen, n, 5, torch.int32), "sum",
+             False),
+            ("q3_f64_sum", ids, f, "sum", False),
+            ("q4_f64_sum_1lane", ids, f[:, None], "sum", False),
+            ("q5_i64_sum", ids, i64, "sum", False),
+            ("q7_i64_max_rev", ids, i64, "max", True),
+            ("i64_max", ids, i64, "max", False),
+            ("q6_i32_min", ids, _ints(torch, gen, n, 100, torch.int32),
+             "min", False)]
+
+
+def _ints(torch, gen, n, hi, dtype):
+    return torch.randint(0, hi, (n,), generator=gen, device="cuda",
+                         dtype=dtype)
+
+
+def _join_scan_shapes(torch, n):
+    """ij's and aj's scans with synthetic ids: ij's i64 min over 1.1 n
+    rows of i32 ids in runs of about 5.5 rows, aj's i64 max over 3 n rows
+    of i64 ids in runs of about 1667 rows (18 000 syms)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    out = []
+    for tag, rows, codes, id_dtype, op in (
+            ("ij", n + n // 10, int((n + n // 10) / 5.5), torch.int32, "min"),
+            ("aj", 3 * n, 18_000, torch.int64, "max")):
+        ids = torch.sort(_ints(torch, gen, rows, codes, id_dtype)).values
+        out.append((tag, ids, _ints(torch, gen, rows, 2**62, torch.int64),
+                    op, False))
+    return out
 
 
 def _profile(tag, fn, reps, out):
@@ -137,6 +195,9 @@ def main(argv=None):
                     help="skip the radix sort's own profiles")
     ap.add_argument("--no-queries", action="store_true",
                     help="skip the grouped selects")
+    ap.add_argument("--seg-scan", action="store_true",
+                    help="profile the segmented scan at its main-path "
+                    "shapes")
     ap.add_argument("--mesh", type=int, default=0,
                     help="run the grouped selects on an N-shard mesh")
     args = ap.parse_args(argv)
@@ -152,6 +213,7 @@ def main(argv=None):
     from rayforce_tpu_torch import Runtime
     from rayforce_tpu_torch.core import symbols
     from rayforce_tpu_torch.engine import device as dev, psort
+    from rayforce_tpu_torch.engine import groupby as G
     from rayforce_tpu_torch.engine import join as ej
     from rayforce_tpu_torch.engine import select as sel
     from rayforce_tpu_torch.engine import sort as es
@@ -172,6 +234,20 @@ def main(argv=None):
         for name, dur in split:
             print(f"   {dur:9.2f} us  {name[:90]}")
         _profile(f"radix_sort_{tag}", run, args.reps, args.out)
+    for tag, ids, vals, op, rev in seg_scan_shapes(torch, n) + \
+            _join_scan_shapes(torch, n) if args.seg_scan else ():
+        def run():
+            return G.seg_scan_cuda(ids, vals, op, rev)
+        split = _launch_split(run)
+        plain = _launch_split(lambda: G.seg_scan_plain(ids, vals, op, rev))
+        print(f"== seg_scan {tag}: {int(vals.shape[0])} x "
+              f"{int(vals[0].numel())} {str(vals.dtype)[6:]} {op}"
+              f"{' reverse' if rev else ''}: {len(split)} launches, "
+              f"{sum(d for _n, d in split) / 1e3:.4f} ms device; plain "
+              f"{len(plain)} launches, "
+              f"{sum(d for _n, d in plain) / 1e3:.4f} ms device")
+        for name, dur in split:
+            print(f"   {dur:9.2f} us  {name[:90]}")
     if args.no_queries:
         return 0
 
@@ -203,11 +279,12 @@ def main(argv=None):
                 return rt.eval_str(q)
         run()
         torch.cuda.synchronize()
-        before = psort.LAUNCHES["radix_sort"]
+        before = dict(psort.LAUNCHES)
         run()
-        launches = psort.LAUNCHES["radix_sort"] - before
+        launches = {k: psort.LAUNCHES[k] - before[k] for k in before}
         _profile(name, run, args.reps, args.out)
-        print(f"   sort launches per run {launches}")
+        print(f"   sort launches per run {launches['radix_sort']}, scan "
+              f"launches per run {launches['seg_scan']}")
         if name in joins:
             prof = es.last_profile if q.startswith("(x") else \
                 ew.last_profile if q.startswith("(window") else \
