@@ -38,10 +38,19 @@ Phases, each reported on its own line:
              SCAN_SIZES (1 to 3e7) over runs of 1, 3, 2500 and 3500
              rows (three blocks and more), one run and sorted ids with
              -2s out of order; NaN of either sign, +-0.0, +-inf, the
-             identities and -1 among the values. One [seg_scan_time]
-             line per main-path scan shape at 1e7 rows (tools/sortprof.py
+             identities and -1 among the values. One run over all 3e7
+             rows is the look-back's longest chain and an f64 global
+             tail; at 1e7 and 3e7 rows each case runs three times and
+             must give the same bits every time. Each case's route
+             (groupby.seg_scan_route) and scratch size must be the
+             library's, and the cases must take all three routes
+             (integer look-back, f64 shared tail, f64 global tail),
+             counted on the [kernels] line. One [seg_scan_time] line per
+             main-path scan shape at 1e7 rows (tools/sortprof.py
              seg_scan_shapes): kernel and plain ms, the byte bound, no
-             library call;
+             library call, the route, and the kernel launches and
+             memsets of one call (the route's, beside a profiler
+             trace's);
 4. main path the db-benchmark G1_1e7_1e2 table (1e7 rows, K=100) made
              on the card from a seeded torch.Generator, and the grouped
              selects of every engine through Runtime().eval_str: bench
@@ -565,56 +574,108 @@ def _same_scan(torch, got, want):
     return bool(torch.equal(got, want))
 
 
+# sizes at which every case runs SCAN_REPEATS times, equal every time
+SCAN_REPEATED = (ROWS, 3 * ROWS)
+SCAN_REPEATS = 3
+
+
+def _scan_kinds(n):
+    if n <= (1 << 20) + 3:
+        return SCAN_IDS
+    return ("run1", "long", "mixed", "one") if n == 3 * ROWS else \
+        ("run1", "long", "mixed")
+
+
 def check_seg_scan(G, torch, gen):
     """The CUDA segmented scan against its plain version on the card, bit
     for bit: every op (min, max, sum), value type (i32, i64, f64), id type
     (i32, and i64 as a strided view), one lane and three (a view of an
     (n, 4) tensor) and both directions, at n in SCAN_SIZES over the id
     patterns of SCAN_IDS (the three longest sizes over run1, long and
-    mixed). Returns the number of cases."""
+    mixed, 3e7 over one as well), SCAN_REPEATS runs a case at
+    SCAN_REPEATED sizes. Each case's route and scratch bytes must be the
+    library's; the cases must take every route. Returns the number of
+    cases and the kernel calls per route."""
     dev = torch.device("cuda")
+    lib = G._seg_lib()
+    routes = dict(G.ROUTES)
     cases = 0
     for n in SCAN_SIZES:
-        kinds = SCAN_IDS if n <= (1 << 20) + 3 else ("run1", "long", "mixed")
         vals = {dt: _scan_vals(torch, gen, dev, n, dt)
                 for dt in (torch.int32, torch.int64, torch.float64)}
-        for kind in kinds:
+        reps = SCAN_REPEATS if n in SCAN_REPEATED else 1
+        for kind in _scan_kinds(n):
             base = _scan_ids(torch, gen, dev, n, kind)
             for ids in (base.to(torch.int32),
                         torch.stack([base, base], 1)[:, 0]):
                 for dt, v4 in vals.items():
                     for v in (v4[:, 0].contiguous(), v4[:, :3]):
+                        L = 1 if v.dim() == 1 else int(v.shape[1])
+                        what = (f"n={n} {kind} ids {ids.dtype} {dt} lanes "
+                                f"{tuple(v.shape[1:])}")
+                        route = G.SEG_ROUTES[lib.rf_seg_scan_route(
+                            n, G._KINDS[dt])]
+                        if route != G.seg_scan_route(n, dt) or \
+                                lib.rf_seg_scan_scratch_bytes(
+                                    n, L, G._KINDS[dt]) != \
+                                G.seg_scan_scratch_bytes(n, L, dt):
+                            raise AssertionError(
+                                f"seg_scan route or scratch differs from "
+                                f"groupby's mirror: {what}")
                         for op in ("min", "max", "sum"):
                             for rev in (False, True):
-                                got = G.seg_scan_cuda(ids, v, op, rev)
                                 want = G.seg_scan_plain(ids, v, op, rev)
-                                if not _same_scan(torch, got, want):
-                                    raise AssertionError(
-                                        f"seg_scan differs: n={n} {kind} "
-                                        f"ids {ids.dtype} {dt} lanes "
-                                        f"{tuple(v.shape[1:])} {op} "
-                                        f"reverse={rev}")
+                                for rep in range(reps):
+                                    got = G.seg_scan_cuda(ids, v, op, rev)
+                                    if not _same_scan(torch, got, want):
+                                        raise AssertionError(
+                                            f"seg_scan differs: {what} "
+                                            f"{op} reverse={rev} (run "
+                                            f"{rep + 1} of {reps})")
                                 cases += 1
         del vals
     torch.cuda.synchronize()
-    return cases
+    routes = {k: G.ROUTES[k] - routes[k] for k in routes}
+    missing = [k for k, c in routes.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"seg_scan: phase 3 never took {missing}")
+    return cases, routes
 
 
 def time_scan(G, torch, name, ids, vals, op, rev):
     """Kernel and plain ms (CUDA events, median of 11) of one scan, with
-    its byte bound (ids read once, values read once and written once);
-    the kernel's output equals the plain version's bit for bit."""
+    its byte bound (ids read once, values read once and written once),
+    its route and its kernel launches and memsets (the route's, and those
+    of the fullest of three profiler traces of one call, which must not
+    exceed them; the profiler drops a device event now and then, and
+    `traced` is None when all three came back empty); the kernel's
+    output equals the plain version's bit for bit."""
+    from rayforce_tpu_torch.tools.sortprof import launch_split
     got = G.seg_scan_cuda(ids, vals, op, rev)
     if not _same_scan(torch, got,
                       G.seg_scan_plain(ids, vals, op, rev)):
         raise AssertionError(f"seg_scan differs at shape {name}")
     n, lanes = int(vals.shape[0]), int(vals[0].numel())
+    launches, memsets = G.seg_scan_launches(n, vals.dtype)
+    # timed before the profiler traces: times taken after them came out
+    # higher on the card
+    ms = cuda_ms(lambda: G.seg_scan_cuda(ids, vals, op, rev))
+    plain_ms = cuda_ms(lambda: G.seg_scan_plain(ids, vals, op, rev))
+    split = max((launch_split(lambda: G.seg_scan_cuda(ids, vals, op, rev))
+                 for _ in range(3)), key=len)
+    traced = [sum("memset" not in k.lower() for k, _us in split),
+              sum("memset" in k.lower() for k, _us in split)]
+    if traced[0] > launches or traced[1] > memsets:
+        raise AssertionError(f"seg_scan at {name}: traced {traced} "
+                             f"launches and memsets, the route has "
+                             f"{launches} and {memsets}")
     return {"shape": name, "rows": n, "lanes": lanes,
             "dtype": str(vals.dtype)[6:], "id_dtype": str(ids.dtype)[6:],
             "op": op, "reverse": rev,
-            "ms": cuda_ms(lambda: G.seg_scan_cuda(ids, vals, op, rev)),
-            "plain_ms": cuda_ms(lambda: G.seg_scan_plain(ids, vals, op,
-                                                         rev)),
+            "route": G.seg_scan_route(n, vals.dtype),
+            "launches": launches, "memsets": memsets,
+            "traced": json.dumps(traced) if split else None,
+            "ms": ms, "plain_ms": plain_ms,
             "bound_ms": n * (ids.element_size() + 2 * vals.element_size() *
                              lanes) / HBM_BYTES_PER_S * 1e3,
             "library_ms": None}
@@ -1799,10 +1860,11 @@ def main():
     for r in times:
         phase("sort_time", **r)
     t0 = time.perf_counter()
-    scan_cases = check_seg_scan(G, torch, gen)
+    scan_cases, scan_routes = check_seg_scan(G, torch, gen)
     phase("kernels", seg_scan="equal", sizes=list(SCAN_SIZES),
-          cases=scan_cases, max_abs_err=0,
-          seconds=round(time.perf_counter() - t0, 3))
+          cases=scan_cases, repeats=SCAN_REPEATS,
+          routes=json.dumps(scan_routes, separators=(",", ":")),
+          max_abs_err=0, seconds=round(time.perf_counter() - t0, 3))
     scan_times = [time_scan(G, torch, *shape)
                   for shape in seg_scan_shapes(torch, ROWS)]
     for r in scan_times:

@@ -26,6 +26,7 @@
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -287,11 +288,66 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 ARGTYPES = {
     "rf_seg_scan_block": (_I32, []),
     "rf_seg_scan_scratch_bytes": (_I64, [_I64, _I32, _I32]),
+    "rf_seg_scan_route": (_I32, [_I64, _I32]),
     "rf_seg_scan": (_I32, [_P, _I32, _I64, _P, _I32, _I64, _I64, _P, _I64,
                            _I32, _I32, _I32, _P, _P]),
 }
 _KINDS = {torch.int32: 0, torch.int64: 1, torch.float64: 2}
 _OPS = {"min": 0, "max": 1, "sum": 2}
+
+# The kernel's routes, by rf_seg_scan_route's number: integer values chain
+# the block tails by a decoupled look-back in one launch; f64 values keep
+# the plain version's tail doubling, in shared memory where a lane's tails
+# and flags fit (SEG_TAIL_SMEM bytes, 8 + 1 a block), else in global
+# memory. Mirrors of the source's constants, which the tests hold against
+# it; chip_smoke.py holds the mirror against the library's answers.
+SEG_ROUTES = ("lookback", "shared_tail", "global_tail")
+SEG_TAIL_SMEM = 232448        # SS_TAIL_SMEM
+SEG_COUNTER_BYTES = 256       # SS_COUNTER_BYTES
+ROUTES = dict.fromkeys(SEG_ROUTES, 0)   # kernel calls per route
+
+
+def _a256(x):
+    return -(-x // 256) * 256
+
+
+def seg_scan_route(n, dtype):
+    """The route name the kernel takes for n rows of `dtype` values (of
+    any number of lanes)."""
+    if dtype != torch.float64:
+        return "lookback"
+    return "shared_tail" if -(-n // _SEG_B) * 9 <= SEG_TAIL_SMEM \
+        else "global_tail"
+
+
+def seg_scan_launches(n, dtype):
+    """(kernel launches, memsets) of one call of the kernel on its route:
+    integer values one block pass after a memset of the look-back words;
+    f64 the block pass, the tail pass (none for a single block) and the
+    fix-up."""
+    if n <= 0:
+        return 0, 0
+    if seg_scan_route(n, dtype) == "lookback":
+        return 1, 1
+    return (3 if n > _SEG_B else 2), 0
+
+
+def seg_scan_scratch_bytes(n, lanes, dtype):
+    """Scratch bytes of one call, the regions its route uses, each
+    256-byte aligned: lookback, a look-back word (a status and a value,
+    twice the value's bytes) per block and lane and the counter; the f64
+    routes, a summary word per block and the block tails, and the global
+    tail the tails' second buffer and two flag bytes per block."""
+    R = -(-n // _SEG_B)
+    vb = 4 if dtype == torch.int32 else 8
+    route = seg_scan_route(n, dtype)
+    if route == "lookback":
+        return _a256(R * lanes * 2 * vb) + SEG_COUNTER_BYTES
+    shared = _a256(R * 4) + _a256(R * lanes * vb)
+    if route == "shared_tail":
+        return shared
+    return shared + _a256(R * lanes * vb) + _a256(2 * R)
+
 
 _lib = None
 
@@ -315,12 +371,20 @@ def _seg_lib():
     return _lib
 
 
+@contextlib.contextmanager
+def _card_stream(device):
+    """`device` made current; yields its current stream's handle."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
+
+
 def seg_scan_cuda(seg_ids, vals, op, reverse=False):
     """The CUDA segmented scan (csrc/seg_scan.cu) of CUDA tensors: bit
-    for bit `seg_scan_plain` on the same card, in three launches. ids
-    (i32 or i64) and values (i32, i64 or f64; (n,) or (n, L)) are read
-    in place, at their strides. Any failure to build, load, allocate or
-    launch raises DeviceError."""
+    for bit `seg_scan_plain` on the same card: for integer values one
+    kernel launch after a memset, for f64 three launches
+    (`seg_scan_route`). ids (i32 or i64) and values (i32, i64 or f64;
+    (n,) or (n, L)) are read in place, at their strides. Any failure to
+    build, load, allocate or launch raises DeviceError."""
     n = int(vals.shape[0])
     if op not in _OPS or vals.dtype not in _KINDS or vals.dim() > 2 or \
             seg_ids.dtype not in (torch.int32, torch.int64) or \
@@ -335,11 +399,11 @@ def seg_scan_cuda(seg_ids, vals, op, reverse=False):
         return out
     L = 1 if vals.dim() == 1 else int(vals.shape[1])
     try:
-        nbytes = lib.rf_seg_scan_scratch_bytes(n, L, vals.element_size())
+        route = SEG_ROUTES[lib.rf_seg_scan_route(n, _KINDS[vals.dtype])]
+        nbytes = lib.rf_seg_scan_scratch_bytes(n, L, _KINDS[vals.dtype])
         scratch = torch.empty(-(-nbytes // 8), dtype=torch.int64,
                               device=vals.device)
-        with torch.cuda.device(vals.device):
-            stream = torch.cuda.current_stream(vals.device).cuda_stream
+        with _card_stream(vals.device) as stream:
             rc = lib.rf_seg_scan(
                 seg_ids.data_ptr(), _KINDS[seg_ids.dtype], seg_ids.stride(0),
                 vals.data_ptr(), _KINDS[vals.dtype], vals.stride(0),
@@ -351,6 +415,7 @@ def seg_scan_cuda(seg_ids, vals, op, reverse=False):
         raise DeviceError(f"seg_scan launch failed: cudaError {rc}")
     with _LAUNCHES_LOCK:
         LAUNCHES["seg_scan"] += 1
+        ROUTES[route] += 1
     return out
 
 

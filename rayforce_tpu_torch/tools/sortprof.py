@@ -28,8 +28,10 @@ over sorted i32 ids of 10^5 codes, i32 sum, f64 sum (one lane and an
 (n, 1) lane), i64 sum, i64 max (and reversed, as q7 scans), i32 min;
 ij's i64 min over 1.1 x --rows rows of i32 ids with runs of about 5.5
 rows, and aj's i64 max over 3 x --rows rows of i64 ids with runs of about
-1667 rows. For each it prints the device time of every launch of one
-scan (block pass, tail pass, fix-up) and the plain version's device time.
+1667 rows. For each it prints the route (groupby.seg_scan_route), the
+device time of every launch of one scan (integer values: the memset of
+the look-back words and the one block pass; f64: block pass, tail pass,
+fix-up) and the plain version's device time.
 
 Prints, per profiled region, the device time by kernel name (the top 14
 and every seg_scan kernel) and the region's wall time, device-busy time
@@ -79,7 +81,7 @@ def _report(tag, prof, wall_ms, reps, out):
         prof.export_chrome_trace(os.path.join(out, f"{tag}.json"))
 
 
-def _launch_split(fn, tries=3):
+def launch_split(fn, tries=3):
     """[(kernel or memset name, device us)] of one call of fn, in launch
     order, from the profiler's trace. A trace that comes back with no
     device event (the profiler drops one now and then) is taken again,
@@ -228,7 +230,7 @@ def main(argv=None):
             _sort_shapes(torch, psort, n):
         def run():
             return psort.sort_i32_cuda(words, nk)
-        split = _launch_split(run)
+        split = launch_split(run)
         print(f"== radix_sort {tag}: {len(split)} launches, "
               f"{sum(d for _n, d in split) / 1e3:.4f} ms device")
         for name, dur in split:
@@ -238,11 +240,13 @@ def main(argv=None):
             _join_scan_shapes(torch, n) if args.seg_scan else ():
         def run():
             return G.seg_scan_cuda(ids, vals, op, rev)
-        split = _launch_split(run)
-        plain = _launch_split(lambda: G.seg_scan_plain(ids, vals, op, rev))
+        split = launch_split(run)
+        plain = launch_split(lambda: G.seg_scan_plain(ids, vals, op, rev))
         print(f"== seg_scan {tag}: {int(vals.shape[0])} x "
               f"{int(vals[0].numel())} {str(vals.dtype)[6:]} {op}"
-              f"{' reverse' if rev else ''}: {len(split)} launches, "
+              f"{' reverse' if rev else ''}, route "
+              f"{G.seg_scan_route(int(vals.shape[0]), vals.dtype)}: "
+              f"{len(split)} launches, "
               f"{sum(d for _n, d in split) / 1e3:.4f} ms device; plain "
               f"{len(plain)} launches, "
               f"{sum(d for _n, d in plain) / 1e3:.4f} ms device")

@@ -18,9 +18,15 @@ the CPU, on the same seeded arrays:
   the reference in a zero's sign (pinned below, ROADMAP queue 3).
 
 The CUDA kernel itself is held bit for bit against the plain version on
-the card by chip_smoke.py. Integer lanes and min/max must be exact here;
+the card by chip_smoke.py. Here, models in plain torch of its routes'
+data flow are held bit for bit against the plain version: the integer
+look-back (the plain in-block doubling, then a sequential chain of the
+flagged block tails, then the fix-up) and the f64 fix-up of the rows the
+block summaries name; and the wrapper's route choice, scratch size and
+arguments against the source's constants and a stand-in library. Integer lanes and min/max must be exact here;
 f64 sums within rtol 1e-12 (the reference's XLA may fuse the adds
 differently), as in test_torch_groupby.py."""
+import contextlib
 import ctypes
 import os
 import re
@@ -315,3 +321,367 @@ def test_signed_zero_rule_differs_from_reference():
             if list(np.signbit(got)) != list(np.signbit(want)):
                 differs.append((op, vals))
     assert differs
+
+
+# -- the kernel's routes, modelled in plain torch -----------------------------
+
+def _blocks(ids, vals, op):
+    """The plain version's padded blocks after its in-block doubling:
+    (ids (R, B), doubled values (R, B, *lanes), first ids, joint, g)."""
+    ident = G._IDENT[vals.dtype][op]
+    B = G._SEG_B
+    n, lanes = vals.shape[0], tuple(vals.shape[1:])
+    ex = (slice(None), slice(None)) + (None,) * len(lanes)
+    R = -(-n // B)
+    pad = R * B - n
+    s2 = torch.cat([ids, ids.new_full((pad,), -2)]).reshape(R, B)
+    m = torch.cat([vals, vals.new_full((pad,) + lanes, ident)]) \
+        .reshape((R, B) + lanes)
+    d = 1
+    while d < B:
+        same = (s2[:, d:] == s2[:, :-d])[ex]
+        m = torch.cat([m[:, :d], G._apply(op, m[:, d:], torch.where(
+            same, m[:, :-d], ident))], dim=1)
+        d *= 2
+    first = s2[:, 0]
+    joint = torch.cat([torch.ones(1, dtype=torch.bool),
+                       first[1:] != s2[:-1, -1]])
+    return s2, m, first, joint, joint | (first != s2[:, -1])
+
+
+def _run_scan(v, heads, op):
+    """The inclusive scan of each run of v (rows, *lanes) that `heads`
+    starts, by a head-flagged doubling."""
+    f, d = heads.clone(), 1
+    ex = (slice(None),) + (None,) * (v.dim() - 1)
+    while d < v.shape[0]:
+        v = torch.cat([v[:d], torch.where(f[d:][ex], v[d:],
+                                          G._apply(op, v[:-d], v[d:]))])
+        f = torch.cat([f[:d], f[:-d] | f[d:]])
+        d *= 2
+    return v
+
+
+def _lookback_model(ids, vals, op, reverse=False):
+    """The integer route: the in-block doubling, except in blocks whose
+    ids never turn back (non-decreasing or non-increasing over the rows
+    below n), where each run's own scan stands in for it; then the chain
+    c[r] = g[r] ? tail[r] : op(c[r-1], tail[r]) in block order (what the
+    look-back computes), then op(m, c[r-1]) on the rows with their
+    block's first id where the block has no joint."""
+    if reverse:
+        return _lookback_model(ids.flip(0), vals.flip(0), op).flip(0)
+    s2, m, first, joint, g = _blocks(ids, vals, op)
+    B, n = G._SEG_B, vals.shape[0]
+    ident = G._IDENT[vals.dtype][op]
+    pad = s2.shape[0] * B - n
+    raw = torch.cat([vals, vals.new_full((pad,) + tuple(vals.shape[1:]),
+                                         ident)]).reshape(m.shape)
+    for r in range(s2.shape[0]):
+        b = s2[r, :min(B, n - r * B)]
+        if bool((b[1:] >= b[:-1]).all()) or bool((b[1:] <= b[:-1]).all()):
+            heads = torch.cat([torch.ones(1, dtype=torch.bool),
+                               s2[r, 1:] != s2[r, :-1]])
+            m[r] = _run_scan(raw[r], heads, op)
+    c = []
+    for r in range(s2.shape[0]):
+        tail = m[r, -1]
+        c.append(tail if g[r] else G._apply(op, c[r - 1], tail))
+        if not joint[r]:
+            rows = s2[r] == first[r]
+            m[r, rows] = G._apply(op, m[r, rows], c[r - 1])
+    return m.reshape((-1,) + tuple(vals.shape[1:]))[:vals.shape[0]]
+
+
+def _summary_fixup_model(ids, vals, op, reverse=False):
+    """The f64 routes' fix-up from the block summaries: the plain tail
+    doubling, then op(m, pfx) on the block's leading run of first-id rows
+    and, only where a later row has the first id too (unsorted ids), on
+    those rows; min and max skip the blocks with a joint."""
+    if reverse:
+        return _summary_fixup_model(ids.flip(0), vals.flip(0), op).flip(0)
+    ident = G._IDENT[vals.dtype][op]
+    s2, m, first, joint, g = _blocks(ids, vals, op)
+    cv, R, d = m[:, -1], s2.shape[0], 1
+    while d < R:
+        cv = torch.cat([cv[:d], torch.where(
+            g[d:].reshape((-1,) + (1,) * (cv.dim() - 1)), cv[d:],
+            G._apply(op, cv[:-d], cv[d:]))])
+        g = torch.cat([g[:d], g[:-d] | g[d:]])
+        d *= 2
+    B = G._SEG_B
+    for r in range(R):
+        if joint[r] and op != "sum":
+            continue
+        eq = s2[r] == first[r]
+        lead = int((~eq).nonzero()[0]) if not eq.all() else B
+        rows = torch.zeros(B, dtype=torch.bool)
+        rows[:lead] = True
+        if eq[lead:].any():
+            rows |= eq
+        pfx = m.new_full(m.shape[2:], ident) if joint[r] else cv[r - 1]
+        m[r, rows] = G._apply(op, m[r, rows], pfx)
+    return m.reshape((-1,) + tuple(vals.shape[1:]))[:vals.shape[0]]
+
+
+def _wrapping_vals(rng, shape, dtype):
+    """Full-range integers (sums wrap), the identities dropped in."""
+    info = np.iinfo(_NP[dtype])
+    v = rng.integers(info.min, info.max, shape, dtype=_NP[dtype],
+                     endpoint=True)
+    flat = v.reshape(-1)
+    for i, x in enumerate((info.max, info.min, -1, 0)):
+        flat[i::7] = x
+    return v
+
+
+@pytest.mark.parametrize("kind", ["run1", "one", "three_blocks", "mixed"])
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("dtype", ["i32", "i64"])
+def test_lookback_chain_is_the_plain_scan(dtype, op, kind):
+    """The integer route's premises: chaining the flagged block tails one
+    after another equals the plain version's tail doubling bit for bit,
+    and so does each run's own scan in a block whose ids never turn back,
+    because min, max and the wrapping sum are exact. Over every id kind
+    (the mixed kind's unsorted -2s keep some blocks on the doubling), the
+    identities as data, wrapping sums, both directions, 1 and 3 lanes."""
+    rng = np.random.default_rng(len(kind) * 31 + len(op) + len(dtype))
+    for n in (1000, 3073, 5121):
+        for lanes in (1, 3):
+            ids = _ids(rng, n, kind)
+            shape = (n,) if lanes == 1 else (n, lanes)
+            vals = torch.from_numpy(_wrapping_vals(rng, shape, dtype))
+            for id_dtype in (torch.int32, torch.int64):
+                ti = torch.from_numpy(ids).to(id_dtype)
+                for rev in (False, True):
+                    got = _lookback_model(ti, vals, op, rev)
+                    want = G.seg_scan_plain(ti, vals, op, rev)
+                    assert torch.equal(got, want), (n, lanes, id_dtype,
+                                                    rev)
+
+
+def test_lookback_sums_wrap():
+    """The data of the test above does wrap: a one-run sum over full-range
+    values leaves the range the exact sum would need."""
+    rng = np.random.default_rng(5)
+    for dtype in ("i32", "i64"):
+        v = _wrapping_vals(rng, 4000, dtype)
+        got = _lookback_model(torch.zeros(4000, dtype=torch.int32),
+                              torch.from_numpy(v), "sum")
+        assert int(got[-1]) != sum(int(x) for x in v)
+        assert int(got[-1]) == int(G.seg_scan_plain(
+            torch.zeros(4000, dtype=torch.int32), torch.from_numpy(v),
+            "sum")[-1])
+
+
+@pytest.mark.parametrize("kind", ["run1", "one", "three_blocks", "mixed"])
+@pytest.mark.parametrize("op", OPS)
+def test_summary_fixup_is_the_plain_scan(op, kind):
+    """The f64 routes' fix-up reads no ids but in blocks whose first id
+    comes back after its leading run, and skips min and max blocks with
+    a joint; that equals the plain version's id-equality fix-up bit for
+    bit (f64 compared as bits: NaN, +-0.0, +-inf among the values). A
+    NaN's own bits are compared for sums alone: min and max with the
+    identity keep a NaN as it is on the card (torch's CUDA rule, which
+    chip_smoke.py holds), while CPU torch's may return another NaN."""
+    rng = np.random.default_rng(len(kind) * 7 + len(op))
+    for n in (1000, 3073, 5121):
+        ids = _ids(rng, n, kind)
+        for lanes in (1, 3):
+            shape = (n,) if lanes == 1 else (n, lanes)
+            v = _vals(rng, shape, "f64")
+            flat = v.reshape(-1)
+            for bits, step in ((0x7FF8000000000000, 97), (0, 5),
+                               (0x8000000000000000, 7),
+                               (0x7FF0000000000000, 101)):
+                flat.view(np.int64)[::step] = np.int64(
+                    bits - (1 << 64) if bits >= 1 << 63 else bits)
+            vals = torch.from_numpy(v)
+            ti = torch.from_numpy(ids)
+            for rev in (False, True):
+                got = _summary_fixup_model(ti, vals, op, rev)
+                want = G.seg_scan_plain(ti, vals, op, rev)
+                nan = torch.isnan(want)
+                assert torch.equal(torch.isnan(got), nan)
+                gb, wb = got.view(torch.int64), want.view(torch.int64)
+                if op == "sum":
+                    assert torch.equal(gb, wb), (n, lanes, rev)
+                else:
+                    assert torch.equal(gb[~nan], wb[~nan]), (n, lanes, rev)
+
+
+def _cu_source():
+    return open(os.path.join(os.path.dirname(G.__file__), "csrc",
+                             "seg_scan.cu")).read()
+
+
+def test_route_and_scratch_constants_match_the_cuda_source():
+    src = _cu_source()
+
+    def define(name):
+        return int(re.search(rf"#define {name} (\d+)", src).group(1))
+    assert define("SS_TAIL_SMEM") == G.SEG_TAIL_SMEM
+    assert define("SS_COUNTER_BYTES") == G.SEG_COUNTER_BYTES
+    # the regions of the scratch per route, as the source lays them out
+    layout = re.search(r"static Layout layout\(.*?\n\}", src, re.S).group(0)
+    assert "L.counter = align256(R * lanes * 2 * vb);" in layout
+    assert "L.a = L.b = L.g = L.total = L.counter + SS_COUNTER_BYTES;" \
+        in layout
+    assert "L.counter = L.a = align256(R * 4);" in layout
+    assert "L.b = L.g = L.total = L.a + align256(R * lanes * vb);" in layout
+    assert "L.g = L.b + align256(R * lanes * vb);" in layout
+    assert "L.total = L.g + align256(2 * R);" in layout
+    routes = re.search(r"enum \{ (ROUTE_\w+ = \d+(?:, ROUTE_\w+ = \d+)*) \}",
+                       src).group(1)
+    names = [m.group(1).lower() for m in
+             re.finditer(r"ROUTE_(\w+) = (\d+)", routes)]
+    assert names == list(G.SEG_ROUTES)
+    # the shared tail holds a lane's R f64 tails and R flag bytes
+    assert re.search(r"blocks_of\(n\) \* \(int64_t\)\(sizeof\(double\) \+ "
+                     r"1\) <= SS_TAIL_SMEM", src)
+
+
+@pytest.mark.parametrize("n,dtype,route", [
+    (1, torch.int32, "lookback"),
+    (30_000_000, torch.int64, "lookback"),
+    (1, torch.float64, "shared_tail"),
+    (10_000_000, torch.float64, "shared_tail"),
+    (25_827 * 1024, torch.float64, "shared_tail"),
+    (25_827 * 1024 + 1, torch.float64, "global_tail"),
+    (30_000_000, torch.float64, "global_tail"),
+])
+def test_route_choice(n, dtype, route):
+    """Integer values always take the look-back; f64 values the shared
+    tail while a lane's tails and flags fit in 227 KB (R <= 25 827
+    blocks), else the global tail, however many lanes (one lane's tails
+    at a time)."""
+    assert G.seg_scan_route(n, dtype) == route
+
+
+@pytest.mark.parametrize("n,lanes,dtype,want", [
+    # lookback: 2 x vb bytes a block and lane, then the counter
+    (1, 1, torch.int32, 256 + 256),
+    (10_000_000, 1, torch.int64, 156416 + 256),
+    (10_000_000, 1, torch.int32, 78336 + 256),
+    (30_000_000, 3, torch.int64, 1406464 + 256),
+    # shared_tail: the summary words, the tails
+    (10_000_000, 1, torch.float64, 39168 + 78336),
+    (1025, 3, torch.float64, 256 + 256),
+    # global_tail: and the second buffer, two flag bytes a block
+    (30_000_000, 1, torch.float64, 117248 + 2 * 234496 + 58624),
+])
+def test_scratch_bytes_per_route(n, lanes, dtype, want):
+    """The scratch holds the regions the call's route uses, each 256-byte
+    aligned: lookback a look-back word (a status and a value, twice the
+    value's bytes) a block and lane and the block counter; the f64 routes
+    a summary word a block and the block tails; the global tail also the
+    tails' second buffer and two flag bytes a block."""
+    assert G.seg_scan_scratch_bytes(n, lanes, dtype) == want
+
+
+class _FakeLib:
+    """A stand-in for the built library: records what the wrapper passes
+    and returns `rc` from the launch."""
+
+    def __init__(self, rc=0):
+        self.rc = rc
+        self.calls = []
+
+    def rf_seg_scan_block(self):
+        return 1024
+
+    def rf_seg_scan_route(self, n, kind):
+        self.calls.append(("route", n, kind))
+        return G.SEG_ROUTES.index(G.seg_scan_route(
+            n, {0: torch.int32, 1: torch.int64, 2: torch.float64}[kind]))
+
+    def rf_seg_scan_scratch_bytes(self, n, lanes, kind):
+        self.calls.append(("scratch", n, lanes, kind))
+        return G.seg_scan_scratch_bytes(
+            n, lanes, {0: torch.int32, 1: torch.int64, 2: torch.float64}[kind])
+
+    def rf_seg_scan(self, *args):
+        self.calls.append(("scan",) + args)
+        return self.rc
+
+
+@pytest.mark.parametrize("dtype,lanes", [(torch.int64, 1),
+                                         (torch.float64, 3)])
+def test_wrapper_passes_scratch_and_arguments(monkeypatch, dtype, lanes):
+    lib = _FakeLib()
+    monkeypatch.setattr(G, "_lib", lib)
+    monkeypatch.setattr(G, "_card_stream",
+                        lambda device: contextlib.nullcontext(1234))
+    allocated = []
+    real_empty = torch.empty
+
+    def empty(*a, **k):
+        t = real_empty(*a, **k)
+        allocated.append(t)
+        return t
+    monkeypatch.setattr(torch, "empty", empty)
+    n = 3000
+    ids = torch.arange(n, dtype=torch.int64) // 7
+    vals = torch.zeros((n, 4), dtype=dtype)[:, :lanes]
+    if lanes == 1:
+        vals = vals[:, 0]
+    before = dict(G.ROUTES), G.LAUNCHES["seg_scan"]
+    out = G.seg_scan_cuda(ids, vals, "max", reverse=True)
+    route = G.seg_scan_route(n, dtype)
+    kind = G._KINDS[dtype]
+    assert lib.calls[0] == ("route", n, kind)
+    assert lib.calls[1] == ("scratch", n, lanes, kind)
+    scan = lib.calls[2]
+    scratch = next(t for t in allocated if t.data_ptr() == scan[13])
+    assert scratch.numel() * scratch.element_size() >= \
+        G.seg_scan_scratch_bytes(n, lanes, dtype)
+    assert scan[1:] == (ids.data_ptr(), 1, ids.stride(0), vals.data_ptr(),
+                        kind, vals.stride(0), vals.stride(-1),
+                        out.data_ptr(), n, lanes, 1, 1,
+                        scratch.data_ptr(), 1234)
+    assert G.ROUTES[route] == before[0][route] + 1
+    assert G.LAUNCHES["seg_scan"] == before[1] + 1
+
+
+def test_wrapper_raises_on_a_failed_launch(monkeypatch):
+    monkeypatch.setattr(G, "_lib", _FakeLib(rc=700))
+    monkeypatch.setattr(G, "_card_stream",
+                        lambda device: contextlib.nullcontext(0))
+    before = dict(G.ROUTES), G.LAUNCHES["seg_scan"]
+    with pytest.raises(DeviceError, match="cudaError 700"):
+        G.seg_scan_cuda(torch.zeros(10, dtype=torch.int32),
+                        torch.zeros(10, dtype=torch.int64), "sum")
+    assert (dict(G.ROUTES), G.LAUNCHES["seg_scan"]) == before
+
+
+@pytest.mark.parametrize("n,dtype,want", [
+    (0, torch.int64, (0, 0)),
+    (5, torch.int32, (1, 1)),
+    (30_000_000, torch.int64, (1, 1)),
+    (1024, torch.float64, (2, 0)),
+    (1025, torch.float64, (3, 0)),
+    (30_000_000, torch.float64, (3, 0)),
+])
+def test_launches_per_route(n, dtype, want):
+    """The integer route is one block pass after a memset of the
+    look-back words; f64 adds the tail pass (none for one block) and the
+    fix-up, as the source's launcher has it."""
+    assert G.seg_scan_launches(n, dtype) == want
+    src = _cu_source()
+    run = re.search(r"static int run\(Args<I, T> a.*?\n\}", src, re.S).group(0)
+    integral, f64 = run.split("} else {", 1)
+    assert integral.count("cudaMemsetAsync") == 1
+    assert integral.count("<<<") == 1
+    assert "cudaMemsetAsync" not in f64 and f64.count("<<<") == 4
+    assert "if (R > 1 && route == ROUTE_SHARED_TAIL)" in f64
+    assert "} else if (R > 1) {" in f64
+
+
+def test_scanparts_variants_still_apply():
+    """tools/scanparts.py builds variants of csrc/seg_scan.cu by text
+    replacement: each replaced text is in the source exactly once."""
+    from rayforce_tpu_torch.tools import scanparts
+    src = _cu_source()
+    for name, edits in scanparts.VARIANTS.items():
+        for old, _new in edits:
+            assert src.count(old) == 1, name
