@@ -8,7 +8,8 @@ Phases, each reported on its own line:
 1. card      the GPU's name and power limit (nvidia-smi);
 2. build     build (or load) every CUDA kernel of the port from the
              sources in this checkout, one nvcc for each, all started
-             together: the radix sort and the segmented scan;
+             together: the radix sort, the segmented scan and the dense
+             aggregate;
 3. kernels   each kernel against its plain PyTorch version on the card:
              the radix sort (engine/psort.py) for n in {977, 2^20+3,
              1e7}, 1-3 key words, random / heavily tied / INT32_MAX
@@ -50,7 +51,18 @@ Phases, each reported on its own line:
              seg_scan_shapes): kernel and plain ms, the byte bound, no
              library call, the route, and the kernel launches and
              memsets of one call (the route's, beside a profiler
-             trace's);
+             trace's). Then the dense aggregate (engine/groupby.py
+             dense_agg_cuda) against dense_agg_plain, bit for bit in
+             every lane: 1, 7, 100 and 512 codes plus the trash code,
+             over DENSE_SIZES rows (1 to 1e7, 1.25e6 a mesh shard);
+             i32 codes, i64 codes as a strided view, every row on one
+             code and a stride-0 view of one; an i32 limb lane, an i64
+             lane whose sums wrap, f64 sums with +-0.0, +-inf (inf -
+             inf in a cell) and magnitudes from 1e-300 to 1e300, i64
+             extrema with KEY_MAX and I64_MIN, f64 extrema with NaN of
+             either sign, +-0.0 and +-inf, an i32 min; counts and then
+             first/last row ids left out; at 1e7 rows three runs a
+             case, equal every time;
 4. main path the db-benchmark G1_1e7_1e2 table (1e7 rows, K=100) made
              on the card from a seeded torch.Generator, and the grouped
              selects of every engine through Runtime().eval_str: bench
@@ -67,8 +79,14 @@ Phases, each reported on its own line:
              [seg_scan_shapes] line its scans per shape: each query of
              SCAN_QUERIES must launch the scan kernel and none may run
              the plain version (phases 5, 6, 8, 9 and 10 print and
-             check the same line). Then each query's warm median
-             exec_ms over 3 runs;
+             check the same line); a [dense_shapes] line its dense
+             aggregates: each dense query (DENSE_QUERIES) must launch
+             the dense kernel and none may run its plain version
+             (phases 7, 8, 10 and 11 the same). Then each query's warm
+             median exec_ms over 3 runs, and one [dense_time] line per
+             dense query on the inputs it gave the dense aggregate:
+             kernel, plain and torch-scatter-route ms, the byte bound,
+             launches and memsets of one call;
 5. joins     bench.py's join tables made on the card (tools/jtables.py:
              the G1 table, a 1e6-row right table, 1e7 trades and 2e7
              quotes), and the joins and table sorts through
@@ -112,8 +130,9 @@ Phases, each reported on its own line:
              table (STREAM_PARTED = None: 720 MB is under the razing
              guard). Each must equal the port's host path over the
              parted table (keys and integer lanes exactly, f64 within
-             rtol 1e-9). One [parted_ms] line per query and mode: the
-             warm median of 3 wall runs;
+             rtol 1e-9); q1 in both modes and dev streamed must
+             launch the dense kernel ([dense_shapes]). One [parted_ms] line per
+             query and mode: the warm median of 3 wall runs;
 8. mesh      the G1 table of phase 4 (same seed, 1e7 rows) row-sharded
              over an 8-shard mesh (RAYFORCE_MESH=8, engine/device.py
              `mesh`; parallel/dist.py: the shards spread over the
@@ -137,7 +156,8 @@ Phases, each reported on its own line:
              the sort launches, the peak device memory of the engine's
              card and the cards the shards sit on. On one card the 8
              shards exchange through device-local copies: these are not
-             a multi-card mesh's times;
+             a multi-card mesh's times. A [dense_time] line for q4's
+             first shard (1.25e6 rows);
 9. mesh     bench.py's join tables of phase 5 made again from the same
    joins     seeds, with `t_skew` (tools/g1.py skewed_id3: one id3 code
              on 60% of the rows), and the joins, table sorts and window
@@ -167,7 +187,8 @@ Phases, each reported on its own line:
              and 9 from the same seeds on the card and runs every query
              of both phases. Each must run the one-process mesh's
              engine, note its exchanged bytes, launch the CUDA sort on
-             every rank and give the one-process mesh's answer bit for
+             every rank (and the dense kernel where the one-process
+             mesh did) and give the one-process mesh's answer bit for
              bit (a digest of every column) on every rank and rerun.
              One [multiproc_ms] line per query: the slower rank's median
              of 2 warm wall runs (every lazy column forced, the card
@@ -175,14 +196,17 @@ Phases, each reported on its own line:
              the calls, bytes and wall ms the rank handed to
              torch.distributed, the launches and peak memory per rank;
 11. entry    the flagship step (rayforce_tpu_torch/entry.py) on the card
-             against the same step on the CPU;
+             (one dense kernel launch) against the same step on the
+             CPU, and its [dense_time] line;
 12. report   one JSON line with every kernel's numbers (the radix sort's
              launches count the main path's, the joins', the window
              joins', the parted selects', the mesh selects', the mesh
              joins' and the two ranks' runs; the scan's the same but the
-             parted selects'; the scan's times are those of its 1e7-row
-             i64 sum), then the result line {"ok": true, "device":
-             {...}}.
+             parted selects'; the dense aggregate's the main path's, the
+             parted selects', the mesh selects', the two ranks' and the
+             entry step's; the scan's times are those of its 1e7-row i64
+             sum, the dense aggregate's those of q1), then the result
+             line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the result line. Without a
 CUDA device, or without the rest of the repository beside it, it exits
@@ -524,12 +548,13 @@ SCAN_IDS = ("run1", "run3", "run2500", "one", "long", "mixed")
 SCAN_F64_BITS = ((0x7FF8000000000000, 997), (0xFFF8000000000000, 1009),
                  (0, 5), (0x8000000000000000, 7), (0x7FF0000000000000, 101),
                  (0xFFF0000000000000, 103))
-# the queries of each phase that run the segmented scan
+# the queries of each phase that run the segmented scan (the dense plan's
+# f64 sums take the dense aggregate's fixed order, no scan)
 SCAN_QUERIES = {
-    "main": ("q2", "q3", "q4", "q5", "q6", "q7", "no_by", "where"),
+    "main": ("q2", "q3", "q5", "q6", "q7", "where"),
     "join": ("ij", "lj", "aj"),
-    "mesh": ("q2", "q3", "q4", "q5", "q6", "q7", "no_by", "where",
-             "med_id3", "med_id3_skew"),
+    "mesh": ("q2", "q3", "q5", "q6", "q7", "where", "med_id3",
+             "med_id3_skew"),
     "mesh_join": ("ij_eq", "lj_eq", "ij_eq_skew"),
 }
 
@@ -698,6 +723,215 @@ def scan_report(path, per_query, shapes, want):
     return sum(per_query.values())
 
 
+# the dense aggregate's cases: codes (and the trash code n), rows (1e7 / 8
+# rows is a mesh shard of phase 8), runs of each case at ROWS
+DENSE_CODES = (1, 7, 100, 512)
+DENSE_SIZES = (1, 31, 32, 33, 1023, 1025, 977, (1 << 20) + 3, ROWS // 8,
+               ROWS)
+DENSE_REPEATS = 3
+# the f64 sums' special values, with their row strides: 0.0, -0.0, inf,
+# -inf (a cell with both adds inf - inf: NaN)
+DENSE_SUM_BITS = ((0, 5), (0x8000000000000000, 7), (0x7FF0000000000000, 1009),
+                  (0xFFF0000000000000, 1013))
+# the queries of each phase that run the dense aggregate (razed, dev v3
+# runs sort-agg; streamed, its partials are dense selects)
+DENSE_QUERIES = {
+    "main": ("q1", "q4", "med", "no_by", "small_where"),
+    "parted": ("q1_stream", "q1_razed", "dev_stream"),
+    "mesh": ("q1", "q4", "med", "no_by", "small_where", "med_id3",
+             "med_id3_skew"),
+}
+
+
+def _put_bits(torch, v, specials):
+    bits = v.view(torch.int64)
+    for b, step in specials:
+        bits[::step] = b - (1 << 64) if b >= 1 << 63 else b
+    return v
+
+
+def _dense_lanes(torch, gen, dev, n):
+    """The lanes of a dense case: ints (an i32 limb lane, an i64 lane
+    whose sums wrap), an f64 sum lane with magnitudes from 1e-300 to
+    1e300 and DENSE_SUM_BITS, mins (i64 with KEY_MAX and I64_MIN, f64
+    with SCAN_F64_BITS: NaN of either sign, +-0.0, +-inf; i32) and maxs
+    (the same f64 and i64 lanes)."""
+    def ri(lo, hi, dtype=torch.int64):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=dtype)
+    mag = torch.pow(10.0, ri(-300, 301).double())
+    fs = _put_bits(torch, (torch.rand(n, generator=gen, device=dev,
+                                      dtype=torch.float64) - 0.5) * mag,
+                   DENSE_SUM_BITS)
+    i64 = ri(-2**63, 2**63 - 1)
+    i64[::11] = 2**63 - 1
+    i64[::13] = -2**63
+    f = _put_bits(torch, (torch.rand(n, generator=gen, device=dev,
+                                     dtype=torch.float64) - 0.5) * 10,
+                  SCAN_F64_BITS)
+    return {"ints": (ri(0, 256, torch.int32), ri(2**61, 2**62)),
+            "fsums": (fs,),
+            "mins": (i64, f, ri(-2**31, 2**31 - 1, torch.int32)),
+            "maxs": (f, i64)}
+
+
+def _dense_codes(torch, gen, dev, n, rows, kind):
+    if kind == "random":
+        return torch.randint(0, n + 1, (rows,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    if kind == "i64_view":
+        c = torch.randint(0, n + 1, (rows,), generator=gen, device=dev)
+        return torch.stack([c, c], 1)[:, 0]
+    one = torch.full((1,), n // 2, dtype=torch.int32, device=dev)
+    return one.expand(rows) if kind == "stride0" else \
+        one.repeat(rows)
+
+
+def _same_dense(torch, got, want):
+    """The same lanes, each of equal type, shape and bits."""
+    if sorted(got) != sorted(want):
+        return False
+    return all(_same_scan(torch, got[k], want[k]) for k in want)
+
+
+def check_dense_agg(G, torch, gen):
+    """The CUDA dense aggregate against its plain version on the card,
+    bit for bit in every lane: DENSE_CODES codes plus the trash code over
+    DENSE_SIZES rows; i32 codes, i64 codes as a strided view, every row on
+    one code and a stride-0 view of one code; every lane of
+    `_dense_lanes`; counts and then first/last row ids left out; at ROWS
+    each case DENSE_REPEATS times, equal every time. Returns the number
+    of cases."""
+    dev = torch.device("cuda")
+    cases = 0
+    for rows in DENSE_SIZES:
+        lanes = _dense_lanes(torch, gen, dev, rows)
+        reps = DENSE_REPEATS if rows == ROWS else 1
+        for n in DENSE_CODES:
+            runs = [(kind, True, True) for kind in
+                    ("random", "i64_view", "one", "stride0")] + \
+                [("random", False, True), ("random", True, False)]
+            for kind, counts, fidx in runs:
+                codes = _dense_codes(torch, gen, dev, n, rows, kind)
+                args = (codes, n + 1, rows, lanes["ints"], lanes["fsums"],
+                        lanes["mins"], lanes["maxs"], counts, fidx)
+                want = G.dense_agg_plain(*args)
+                for rep in range(reps):
+                    got = G.dense_agg_cuda(*args)
+                    if not _same_dense(torch, got, want):
+                        bad = [k for k in want if k not in got or
+                               not _same_scan(torch, got[k], want[k])]
+                        raise AssertionError(
+                            f"dense_agg differs: {rows} rows, {n} codes "
+                            f"{kind}, counts={counts} fidx={fidx}, lanes "
+                            f"{bad} (run {rep + 1} of {reps})")
+                cases += 1
+        del lanes
+    torch.cuda.synchronize()
+    return cases
+
+
+def dense_launches(G, call):
+    """(kernel launches, memsets) of one dense_agg_cuda call with these
+    arguments: each library call of the wrapper (G._dense_batches) is one
+    memset and rf_dense_agg_launches kernels."""
+    codes, W, n, ints, fsums, mins, maxs, _counts, fidx = call
+    lanes = [("", x, "int") for x in ints] + \
+        [("", x, "fsum") for x in fsums] + \
+        [("", x, "min") for x in mins] + [("", x, "max") for x in maxs]
+    lib = G._dense_lib()
+    k = 0
+    batches = G._dense_batches(W, lanes, fidx)
+    for bi, b in enumerate(batches):
+        n_f = sum(op == "fsum" for _nm, _x, op in b)
+        k += lib.rf_dense_agg_launches(
+            n, W, (3 if fidx and bi == 0 else 1) + len(b) - n_f, n_f)
+    return k, len(batches)
+
+
+def scatter_route(G, psort, torch, codes, W, n, ints, fsums, mins, maxs,
+                  counts, fidx):
+    """The torch route this kernel replaced, on the same inputs: one
+    stacked index_add_ over copies of the cells for the counts and
+    integer sums, scatter_reduce_ for the row ids and extrema, and for
+    f64 sums a stable sort of the codes (the CUDA radix sort), a gather
+    of the lanes and the segmented scan (its CUDA kernel). Timed as the
+    yardstick; no part of the port calls it."""
+    I64 = torch.int64
+    c = codes[:n]
+    cells = G._cells(c, W, n)
+    acc = G._scatter_sum(cells, W, torch.stack(
+        [x[:n].to(I64) for x in ints] +
+        [torch.ones(n, dtype=I64, device=c.device)], 1))
+    out = [acc]
+    if fidx:
+        rows = torch.arange(n, dtype=I64, device=c.device)
+        out += [G._scatter_ext(cells, W, rows, "amin"),
+                G._scatter_ext(cells, W, rows, "amax", init=-1)]
+    if fsums:
+        (sc,), _, perm = psort.sort_lex([c.to(torch.int32)], perm=True)
+        perm = perm.long()
+        ends = torch.clamp(torch.cumsum(acc[:, -1], 0) - 1, min=0)
+        out.append(G.seg_doubling_sum(sc, torch.stack(
+            [x[:n][perm] for x in fsums], 1))[ends])
+    out += [G._scatter_ext(cells, W, m[:n], "amin") for m in mins]
+    out += [G._scatter_ext(cells, W, m[:n], "amax") for m in maxs]
+    return out
+
+
+def dense_bytes(call):
+    """Bytes one dense aggregate must move: the codes (one element for a
+    stride-0 view) and every lane read once, every (W,) output written
+    once."""
+    codes, W, n, ints, fsums, mins, maxs, counts, fidx = call
+    lanes = list(ints) + list(fsums) + list(mins) + list(maxs)
+    read = (n if codes.stride(0) else 1) * codes.element_size() + \
+        sum(n * x.element_size() for x in lanes)
+    return read + W * 8 * (len(lanes) + bool(counts) + 2 * bool(fidx))
+
+
+def time_dense(G, psort, torch, name, call):
+    """Kernel, plain and torch-scatter-route ms (CUDA events, median of
+    11; the plain version of 3) of one dense aggregate on the inputs a
+    query gave it, its byte bound and its launches; the kernel's output
+    equals the plain version's bit for bit."""
+    codes, W, n, ints, fsums, mins, maxs, _c, _f = call
+    if not _same_dense(torch, G.dense_agg_cuda(*call),
+                       G.dense_agg_plain(*call)):
+        raise AssertionError(f"dense_agg differs at shape {name}")
+    launches, memsets = dense_launches(G, call)
+    return {"shape": name, "rows": n, "cells": W,
+            "lanes": json.dumps({k: [str(x.dtype)[6:] for x in v] for k, v
+                                 in (("int", ints), ("fsum", fsums),
+                                     ("min", mins), ("max", maxs)) if v},
+                                separators=(",", ":")),
+            "code_stride": codes.stride(0),
+            "launches": launches, "memsets": memsets,
+            "ms": cuda_ms(lambda: G.dense_agg_cuda(*call)),
+            "plain_ms": cuda_ms(lambda: G.dense_agg_plain(*call), reps=3,
+                                warm=1),
+            "library_ms": cuda_ms(lambda: scatter_route(G, psort, torch,
+                                                        *call)),
+            "bound_ms": dense_bytes(call) / HBM_BYTES_PER_S * 1e3}
+
+
+def dense_report(path, per_query, shapes, want):
+    """Each query of `want` launched the dense kernel, and no query ran
+    its plain version on the card; prints the [dense_shapes] line."""
+    plain = sorted(k for k in shapes if k.endswith(" plain"))
+    if plain:
+        raise AssertionError(f"{path}: the plain dense aggregate ran on "
+                             f"the card: {plain}")
+    missing = [q for q in want if per_query.get(q, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{path}: the dense kernel never launched in "
+                             f"{missing}")
+    phase("dense_shapes", path=path, launches=sum(per_query.values()),
+          per_query=json.dumps(per_query, separators=(",", ":")),
+          calls=json.dumps(shapes, separators=(",", ":")))
+    return sum(per_query.values())
+
+
 def _engine(sel, before):
     """The engine that answered the last query: wide and sort-agg name
     themselves in last_profile; the dense plan is a select._Plan in the
@@ -718,7 +952,8 @@ def main_path(rows, device):
     Returns (launches of the main path's run, launches per query, warm
     median exec_ms per query, calls of the sort per (rows, key words,
     words) in that run, the host copies of the results, the scan
-    kernel's launches in that run)."""
+    kernel's launches in that run, and the dense kernel's launches in
+    that run with the first call of each dense query, by query)."""
     import torch
     from rayforce_tpu_torch import Runtime
     from rayforce_tpu_torch.core import symbols
@@ -726,7 +961,8 @@ def main_path(rows, device):
     from rayforce_tpu_torch.engine import psort
     from rayforce_tpu_torch.engine import select as sel
     from rayforce_tpu_torch.tools.g1 import QUERIES, g1_table
-    from rayforce_tpu_torch.tools.multiproc_worker import count_scans
+    from rayforce_tpu_torch.tools.multiproc_worker import count_dense, \
+        count_scans
 
     t0 = time.perf_counter()
     rt = Runtime()
@@ -748,15 +984,21 @@ def main_path(rows, device):
         return real(words, n_keys, skipped, perm)
 
     scans, scan_per_query = {}, {}
+    dense, dense_per_query, dense_calls = {}, {}, {}
     psort.sort_i32_cuda = recording
-    psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["seg_scan"] = 0
+    psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["seg_scan"] = \
+        psort.LAUNCHES["dense_agg"] = 0
     try:
-        with count_scans(scans):
+        with count_scans(scans), count_dense(dense):
             for name, (q, engine) in QUERIES.items():
                 before = dict(psort.LAUNCHES)
                 cached = set(sel._plan_cache)
                 sel.last_profile.clear()
-                results[name] = rt.eval_str(q)
+                calls = []
+                with count_dense({}, calls):
+                    results[name] = rt.eval_str(q)
+                if calls:
+                    dense_calls[name] = calls[0][1]
                 got = _engine(sel, cached)
                 if got != engine:
                     raise AssertionError(f"{name}: engine {got}, not "
@@ -765,6 +1007,8 @@ def main_path(rows, device):
                     before["radix_sort"]
                 scan_per_query[name] = psort.LAUNCHES["seg_scan"] - \
                     before["seg_scan"]
+                dense_per_query[name] = psort.LAUNCHES["dense_agg"] - \
+                    before["dense_agg"]
                 if per_query[name] <= 0:
                     raise AssertionError(f"{name}: the CUDA sort never "
                                          "launched")
@@ -775,6 +1019,8 @@ def main_path(rows, device):
     launches = psort.LAUNCHES["radix_sort"]
     scan_launches = scan_report("main", scan_per_query, scans,
                                 SCAN_QUERIES["main"])
+    dense_launches_ = dense_report("main", dense_per_query, dense,
+                                   DENSE_QUERIES["main"])
 
     dev.set_enabled(False)
     try:
@@ -802,7 +1048,8 @@ def main_path(rows, device):
         exec_ms[name] = statistics.median(runs)
         phase("exec_ms", query=name, engine=engine, median_ms=exec_ms[name],
               runs=runs, bit_identical=True)
-    return launches, per_query, exec_ms, shapes, host_cols, scan_launches
+    return launches, per_query, exec_ms, shapes, host_cols, scan_launches, \
+        (dense_launches_, dense_calls)
 
 
 def _exec_ms(prof):
@@ -834,7 +1081,9 @@ def mesh_path(rows, device, single):
     against the host path here) and a second mesh run. Returns (launches
     of the checked runs, launches per query, per query the mesh answer's
     digest, exchanged bytes, engine, warm wall ms and whether it scanned
-    for phase 10, and the scan kernel's launches in the checked runs)."""
+    and ran the dense kernel for phase 10, the scan kernel's launches in
+    the checked runs, and the dense kernel's launches in them with the
+    first call of q4, one shard's)."""
     import torch
     from rayforce_tpu_torch import Runtime
     from rayforce_tpu_torch.core import symbols
@@ -845,8 +1094,8 @@ def mesh_path(rows, device, single):
     from rayforce_tpu_torch.tools.g1 import MESH_QUERIES, QUERIES, \
         g1_table, skewed_id3
     from rayforce_tpu_torch.tools.jtables import force_columns
-    from rayforce_tpu_torch.tools.multiproc_worker import count_scans, \
-        digest
+    from rayforce_tpu_torch.tools.multiproc_worker import count_dense, \
+        count_scans, digest
 
     def no_fallback(e):
         raise AssertionError(f"device path fell back to the host: {e!r}")
@@ -891,7 +1140,9 @@ def mesh_path(rows, device, single):
             raise AssertionError(f"no {MESH_SHARDS}-shard mesh: {m}")
         results, per_query, stats, peak = {}, {}, {}, {}
         scans, scan_per_query = {}, {}
-        psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["seg_scan"] = 0
+        dense, dense_per_query, shard_call = {}, {}, []
+        psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["seg_scan"] = \
+            psort.LAUNCHES["dense_agg"] = 0
         for name, q in queries.items():
             before = dict(psort.LAUNCHES)
             dist.reset_stats()
@@ -899,7 +1150,8 @@ def mesh_path(rows, device, single):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
-            with count_scans(scans):
+            with count_scans(scans), count_dense(
+                    dense, shard_call if name == "q4" else None):
                 results[name] = rt.eval_str(q)
                 _columns(results[name], name)
             torch.cuda.synchronize()
@@ -912,6 +1164,8 @@ def mesh_path(rows, device, single):
                 before["radix_sort"]
             scan_per_query[name] = psort.LAUNCHES["seg_scan"] - \
                 before["seg_scan"]
+            dense_per_query[name] = psort.LAUNCHES["dense_agg"] - \
+                before["dense_agg"]
             if per_query[name] <= 0:
                 raise AssertionError(f"{name}: the CUDA sort never launched")
             stats[name] = dict(dist.stats)
@@ -922,6 +1176,8 @@ def mesh_path(rows, device, single):
         launches = psort.LAUNCHES["radix_sort"]
         scan_launches = scan_report("mesh", scan_per_query, scans,
                                     SCAN_QUERIES["mesh"])
+        dense_launches_ = dense_report("mesh", dense_per_query, dense,
+                                       DENSE_QUERIES["mesh"])
 
         answers = {}
         for name, q in queries.items():
@@ -941,7 +1197,8 @@ def mesh_path(rows, device, single):
                              "exchanged_bytes":
                              stats[name]["exchanged_bytes"],
                              "ms": statistics.median(walls),
-                             "scans": scan_per_query[name] > 0}
+                             "scans": scan_per_query[name] > 0,
+                             "dense": dense_per_query[name] > 0}
             phase("mesh_ms", query=name, engine=MESH_ENGINES[name],
                   shards=MESH_SHARDS, groups=groups,
                   median_ms=statistics.median(runs), runs=runs,
@@ -951,7 +1208,8 @@ def mesh_path(rows, device, single):
                   launches=per_query[name], peak_mb=round(peak[name], 1),
                   equals_single_device=True, bit_identical=True,
                   cards=len(set(m.devices)))
-        return launches, per_query, answers, scan_launches
+        return launches, per_query, answers, scan_launches, \
+            (dense_launches_, shard_call[0][1])
     finally:
         os.environ.pop("RAYFORCE_MESH", None)
         dev._mesh_state.update({"mesh": None, "checked": False})
@@ -1507,8 +1765,10 @@ def multiproc_path(rows, answers):
     engine, note its exchanged bytes, launch the CUDA sort on every rank
     (and the scan kernel, where the one-process mesh's run did) and give
     its answer bit for bit (the digest of every column) on every rank and
-    every run. Returns (the ranks' sort launches of the checked runs, per
-    query, and their scan kernel launches)."""
+    every run; where the one-process mesh's run launched the dense kernel,
+    every rank's must too, and none may run its plain version. Returns
+    (the ranks' sort launches of the checked runs, per query, their scan
+    kernel launches and their dense kernel launches)."""
     import torch
     from rayforce_tpu_torch.engine.device import backend_for
     from rayforce_tpu_torch.tools import multiproc_worker as W
@@ -1545,6 +1805,7 @@ def multiproc_path(rows, answers):
     queries = [{x["query"]: x for x in r if "query" in x} for r in recs]
     launches, per_query, faults = 0, {}, []
     scans, scan_per_query = {}, {}
+    dense, dense_per_query = {}, {}
     for name, want in answers.items():
         got = [q[name] for q in queries]
         for rank, g in enumerate(got):
@@ -1568,8 +1829,14 @@ def multiproc_path(rows, answers):
                               "scan kernel")
             for k, c in g["seg_scan_shapes"].items():
                 scans[k] = scans.get(k, 0) + c
+            if want.get("dense") and g["dense_agg_launches"] <= 0:
+                faults.append(f"{name}: rank {rank} never launched the "
+                              "dense kernel")
+            for k, c in g["dense_agg_shapes"].items():
+                dense[k] = dense.get(k, 0) + c
         per_query[name] = sum(g["launches"] for g in got)
         scan_per_query[name] = sum(g["seg_scan_launches"] for g in got)
+        dense_per_query[name] = sum(g["dense_agg_launches"] for g in got)
         launches += per_query[name]
         mesh_ms = max(statistics.median(g["ms"]) for g in got)
         wire_ms = max(g["wire"]["seconds"] for g in got) * 1e3
@@ -1593,7 +1860,10 @@ def multiproc_path(rows, answers):
     scan_launches = scan_report(
         "multiproc", scan_per_query, scans,
         [name for name, want in answers.items() if want["scans"]])
-    return launches, per_query, scan_launches
+    dense_launches_ = dense_report(
+        "multiproc", dense_per_query, dense,
+        [name for name, want in answers.items() if want.get("dense")])
+    return launches, per_query, scan_launches, dense_launches_
 
 
 PARTS = 10
@@ -1605,7 +1875,10 @@ def parted_path(rows, device):
     PARTED_QUERIES over it, streaming partition by partition and razed,
     each held against the port's host path over the parted table.
     Returns (launches of the checked run of each query and mode, the
-    launches per query and mode); the timed reruns are not counted."""
+    launches per query and mode, the dense kernel's launches in the
+    checked runs); the timed reruns are not counted. The dense runs
+    (DENSE_QUERIES["parted"]: query_mode) must launch the dense kernel
+    and no query may run its plain version."""
     import shutil
     import tempfile
     import torch
@@ -1618,6 +1891,7 @@ def parted_path(rows, device):
     from rayforce_tpu_torch.ops import query as Q
     from rayforce_tpu_torch.storage import parted as P
     from rayforce_tpu_torch.tools.g1 import PARTED_QUERIES, g1_table
+    from rayforce_tpu_torch.tools.multiproc_worker import count_dense
 
     rt = Runtime()
     t0 = time.perf_counter()
@@ -1657,8 +1931,8 @@ def parted_path(rows, device):
             torch.cuda.synchronize()
             return out
 
-        per_query = {}
-        psort.LAUNCHES["radix_sort"] = 0
+        per_query, dense, dense_per_query = {}, {}, {}
+        psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["dense_agg"] = 0
         for mode, flag in (("stream", True), ("razed", None)):
             Q.STREAM_PARTED = flag
             for name, q in PARTED_QUERIES.items():
@@ -1674,14 +1948,17 @@ def parted_path(rows, device):
                     seen.append((r is not None and not isinstance(r, str),
                                  psort.LAUNCHES["radix_sort"] - before))
                     return r
-                before = psort.LAUNCHES["radix_sort"]
+                before = dict(psort.LAUNCHES)
                 sel.try_select_device = watched
                 try:
-                    got = run(q)
+                    with count_dense(dense):
+                        got = run(q)
                 finally:
                     sel.try_select_device = real
                 per_query[f"{name}_{mode}"] = \
-                    psort.LAUNCHES["radix_sort"] - before
+                    psort.LAUNCHES["radix_sort"] - before["radix_sort"]
+                dense_per_query[f"{name}_{mode}"] = \
+                    psort.LAUNCHES["dense_agg"] - before["dense_agg"]
                 calls = PARTS if mode == "stream" else 1
                 if len(seen) != calls or not all(
                         ok and n > 0 for ok, n in seen):
@@ -1698,7 +1975,9 @@ def parted_path(rows, device):
                       median_ms=statistics.median(runs), runs=runs,
                       launches=per_query[f"{name}_{mode}"],
                       device_calls=len(seen), host_seconds=host_s[name])
-        return sum(per_query.values()), per_query
+        dense_launches_ = dense_report("parted", dense_per_query, dense,
+                                       DENSE_QUERIES["parted"])
+        return sum(per_query.values()), per_query, dense_launches_
     finally:
         Q.STREAM_PARTED = saved
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1797,12 +2076,23 @@ def same_bits(got, want, name):
 
 def check_entry(torch):
     """The flagship step on the card against the same step on the CPU:
-    integer lanes exactly, f64 lanes within rtol 1e-9."""
+    integer lanes exactly, f64 lanes within rtol 1e-9. The card's step
+    must launch the dense kernel once and never run its plain version.
+    Returns (lanes, the dense kernel's launches, its call)."""
+    from rayforce_tpu_torch.engine import psort
     from rayforce_tpu_torch.entry import entry
+    from rayforce_tpu_torch.tools.multiproc_worker import count_dense
     step, args = entry()
     if any(a.device.type != "cuda" for a in args):
         raise AssertionError("entry() did not put its arguments on the card")
-    got = [x.cpu() for x in step(*args)]
+    dense, calls = {}, []
+    psort.LAUNCHES["dense_agg"] = 0
+    with count_dense(dense, calls):
+        got = [x.cpu() for x in step(*args)]
+    launches = dense_report("entry", {"step": psort.LAUNCHES["dense_agg"]},
+                            dense, ["step"])
+    if launches != 1:
+        raise AssertionError(f"entry: {launches} dense launches, not 1")
     want = step(*[a.cpu() for a in args])
     for i, (g, w) in enumerate(zip(got, want)):
         if g.dtype != w.dtype or g.shape != w.shape:
@@ -1812,7 +2102,7 @@ def check_entry(torch):
             torch.testing.assert_close(g, w, rtol=1e-9, atol=0)
         elif not torch.equal(g, w):
             raise AssertionError(f"entry lane {i} differs")
-    return len(got)
+    return len(got), launches, calls[0][1]
 
 
 def main():
@@ -1842,10 +2132,11 @@ def main():
 
     # 2. build: one nvcc for each kernel family, all started together
     t0 = time.perf_counter()
-    cubuild.build(["radix_sort", "seg_scan"])
+    cubuild.build(["radix_sort", "seg_scan", "dense_agg"])
     psort._radix_lib()
     G._seg_lib()
-    phase("build", kernels="radix_sort,seg_scan",
+    G._dense_lib()
+    phase("build", kernels="radix_sort,seg_scan,dense_agg",
           seconds=round(time.perf_counter() - t0, 3),
           nvcc_seconds=json.dumps(cubuild.build_seconds))
 
@@ -1869,12 +2160,24 @@ def main():
                   for shape in seg_scan_shapes(torch, ROWS)]
     for r in scan_times:
         phase("seg_scan_time", **r)
+    t0 = time.perf_counter()
+    dense_cases = check_dense_agg(G, torch, gen)
+    phase("kernels", dense_agg="equal", sizes=list(DENSE_SIZES),
+          codes=list(DENSE_CODES), cases=dense_cases,
+          repeats=DENSE_REPEATS, max_abs_err=0,
+          seconds=round(time.perf_counter() - t0, 3))
 
     # 4. the main path at full size
-    main_launches, per_query, _ms, shapes, single, main_scans = \
-        main_path(ROWS, "cuda")
+    main_launches, per_query, _ms, shapes, single, main_scans, \
+        (main_dense, dense_calls) = main_path(ROWS, "cuda")
     phase("main_path", launches=main_launches, seg_scan_launches=main_scans,
+          dense_agg_launches=main_dense,
           per_query=json.dumps(per_query, separators=(",", ":")))
+    dense_times = [time_dense(G, psort, torch, name, call)
+                   for name, call in dense_calls.items()]
+    for r in dense_times:
+        phase("dense_time", **r)
+    del dense_calls
     phase("sort_shapes", calls=json.dumps(
         [{"rows": n, "key_words": k, "words": m, "launches": c}
          for (n, k, m), c in sorted(shapes.items())],
@@ -1905,17 +2208,23 @@ def main():
     torch.cuda.empty_cache()
 
     # 7. parted selects, streamed and razed
-    parted_launches, parted_per_query = parted_path(ROWS, "cuda")
+    parted_launches, parted_per_query, parted_dense = parted_path(ROWS,
+                                                                  "cuda")
     phase("parted_path", launches=parted_launches,
+          dense_agg_launches=parted_dense,
           per_query=json.dumps(parted_per_query, separators=(",", ":")))
 
     # 8. the grouped selects over an 8-shard mesh on the card
     torch.cuda.empty_cache()
-    mesh_launches, mesh_per_query, answers, mesh_scans = mesh_path(
-        ROWS, "cuda", single)
+    mesh_launches, mesh_per_query, answers, mesh_scans, \
+        (mesh_dense, shard_call) = mesh_path(ROWS, "cuda", single)
     phase("mesh_path", launches=mesh_launches, shards=MESH_SHARDS,
-          seg_scan_launches=mesh_scans,
+          seg_scan_launches=mesh_scans, dense_agg_launches=mesh_dense,
           per_query=json.dumps(mesh_per_query, separators=(",", ":")))
+    r = time_dense(G, psort, torch, "mesh_q4_shard", shard_call)
+    dense_times.append(r)
+    phase("dense_time", **r)
+    del shard_call
     del single
     torch.cuda.empty_cache()
 
@@ -1929,18 +2238,25 @@ def main():
     torch.cuda.empty_cache()
 
     # 10. the same mesh over MP_RANKS processes
-    mp_launches, mp_per_query, mp_scans = multiproc_path(ROWS, answers)
+    mp_launches, mp_per_query, mp_scans, mp_dense = multiproc_path(
+        ROWS, answers)
     phase("multiproc_path", launches=mp_launches, ranks=MP_RANKS,
           shards=MESH_SHARDS, seg_scan_launches=mp_scans,
+          dense_agg_launches=mp_dense,
           per_query=json.dumps(mp_per_query, separators=(",", ":")))
 
     # 11. the flagship step
-    lanes = check_entry(torch)
-    phase("entry", lanes=lanes, card_equals_cpu=True)
+    lanes, entry_dense, entry_call = check_entry(torch)
+    phase("entry", lanes=lanes, card_equals_cpu=True,
+          dense_agg_launches=entry_dense)
+    r = time_dense(G, psort, torch, "entry", entry_call)
+    dense_times.append(r)
+    phase("dense_time", **r)
 
     # 12. report
     main = next(r for r in times if r["shape"] == "sortagg_2w")
     scan = next(r for r in scan_times if r["shape"] == "q5_i64_sum")
+    dense = next(r for r in dense_times if r["shape"] == "q1")
     kernels = [{
         "name": "radix_sort",
         "route": "cuda",
@@ -1970,6 +2286,20 @@ def main():
         "bound_ms": scan["bound_ms"],
         "bound_by": "bytes",
         "library_ms": scan["library_ms"],
+    }, {
+        "name": "dense_agg",
+        "route": "cuda",
+        "source": "rayforce_tpu_torch/engine/csrc/dense_agg.cu",
+        "replaces": "rayforce_tpu/engine/groupby.py:168 (bcast_scan), :89 "
+                    "(matmul_tasks_scan), jnp under jax.jit",
+        "launches": main_dense + parted_dense + mesh_dense + mp_dense +
+        entry_dense,
+        "max_abs_err": 0,
+        "ms": dense["ms"],
+        "plain_ms": dense["plain_ms"],
+        "bound_ms": dense["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": dense["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,26 +1,27 @@
-"""Group-by kernels, in plain torch.
+"""Group-by kernels: dense per-code aggregates, the segmented scan and
+the output packing.
 
-- Dense per-code aggregates for small code spaces (`bcast_scan`) and
-  exact integer segment sums (`matmul_tasks_scan`, with
-  `int_limb_weights` / `recombine_limbs` for full-width i64 sums). The
-  TPU package computes these without scatters, by an (L, n) equality
-  mask per 65536-row chunk and by f32 one-hot MXU matmuls over 8-bit
-  limbs, because its TPU has no fast scatter. Hopper scatters well, so
-  here they are scatters: i64 `index_add_` for counts and integer sums,
-  `scatter_reduce` amin/amax for row ids and extrema. With at most 513
-  cells, a plain scatter would put millions of atomics on each address
-  (and every row of a no-by select on one), which serialises them; so
-  rows are dealt round-robin over up to 4096 copies of the cells and
-  the copies are reduced afterwards (`_cells`). Integer adds and min/max
-  are exact, so the result is the same on every run. f64 sums are the
-  one lane a scatter cannot give deterministically (atomic f64 adds
-  change their order, and so their last bits, from run to run): they
-  take one stable sort of the codes through the psort entry and the
-  segmented scan below, a fixed order.
+- Dense per-code aggregates for small code spaces (`bcast_scan`), exact
+  integer segment sums (`matmul_tasks_scan`, with `int_limb_weights` /
+  `recombine_limbs` for full-width i64 sums) and both over the same
+  codes at once (`dense_scan`). The TPU package computes these without
+  scatters, by an (L, n) equality mask per 65536-row chunk and by f32
+  one-hot MXU matmuls over 8-bit limbs, because its TPU has no fast
+  scatter. Here every one of them is one call of `_dense_agg`: on a
+  CUDA tensor the hand-written kernel of `csrc/dense_agg.cu`
+  (`dense_agg_cuda`), on a CPU tensor its plain version
+  `dense_agg_plain`, torch scatters over copies of the cells (`_cells`:
+  with at most 513 cells a plain scatter would put millions of atomics
+  on each address). Counts, integer sums (wrapping i64), first/last
+  row ids and extrema are exact, so any order of the rows gives the
+  same bits. f64 sums are added in one order fixed by the row index
+  (`_fixed_order_sums`: a left fold in row order inside 1024-row
+  chunks, then a pairwise tree over the chunks), which the kernel
+  follows add for add.
 - The inclusive segmented min/max/sum scan over runs of equal segment
-  ids (sort-agg, wide, the joins, the mesh, and the f64 sums above):
-  on a CUDA tensor the hand-written kernel of `csrc/seg_scan.cu`, on a
-  CPU tensor its plain version `seg_scan_plain`.
+  ids (sort-agg, wide, the joins, the mesh): on a CUDA tensor the
+  hand-written kernel of `csrc/seg_scan.cu`, on a CPU tensor its plain
+  version `seg_scan_plain`.
 - `Packer` / `unpack`: every output lane of a dense plan in ONE i64
   buffer, so the host pays one device-to-host transfer per query.
 """
@@ -33,8 +34,7 @@ import numpy as np
 import torch
 
 from .device import DeviceError
-from .psort import LAUNCHES, _LAUNCHES_LOCK, f64_from_order, f64_order, \
-    sort_lex
+from .psort import LAUNCHES, _LAUNCHES_LOCK, f64_from_order, f64_order
 
 LIMB_BITS = 8
 LIMB_MASK = (1 << LIMB_BITS) - 1
@@ -105,18 +105,6 @@ def _scatter_ext(cells, n_cells, x, op, init=None):
 
 # -- exact integer segment sums ----------------------------------------------
 
-def matmul_tasks_scan(codes, weights: list, n_cells: int, n_rows: int):
-    """Exact dense segment sums of each weights[i] (n_rows,) by group
-    code (codes in [0, n_cells)). Returns a list of (n_cells,) f64 sums.
-
-    The weights hold integers (8-bit limbs, ones, null flags), as the
-    TPU package's f32 one-hot matmuls require; here one i64 scatter-add
-    takes every task at once."""
-    w = torch.stack([x[:n_rows].to(I64) for x in weights], 1)
-    acc = _scatter_sum(_cells(codes, n_cells, n_rows), n_cells, w)
-    return [acc[:, t].to(torch.float64) for t in range(len(weights))]
-
-
 def int_limb_weights(arr, null_val, lo: int | None, hi: int | None):
     """Split a (possibly null-carrying) integer array into 8-bit limbs
     plus a null flag (i32 tensors), so full-width i64 sums stay exact:
@@ -159,7 +147,279 @@ def recombine_limbs(limb_sums: list[np.ndarray], bias: int,
     return out
 
 
-# -- small-n dense aggregates ------------------------------------------------
+# -- the dense aggregate: plain version, kernel, dispatch ------------------
+
+_DENSE_CHUNK = 1024   # rows of a chunk of the fixed f64 order (DA_CHUNK)
+
+
+def _fixed_order_sums(codes, vals, n_cells):
+    """(n_cells, F) f64 sums of the rows of vals (F (n,) f64 lanes) by
+    code in [0, n_cells), in the order the kernel adds them: rows in
+    chunks of _DENSE_CHUNK; in a chunk each cell's partial is the left
+    fold of its rows in row order from -0.0; then the chunk partials of
+    a cell combine by a pairwise tree over the chunk index, level by
+    level, an odd last node passed up as it is. The fold runs one step
+    per rank of a row among its (chunk, code)'s rows, over every
+    (chunk, code) at once; each add is one torch add, as the kernel's
+    fma(1.0, b, a) is on the card."""
+    n, F, dv = int(codes.shape[0]), len(vals), codes.device
+    W = n_cells
+    if n == 0:
+        return torch.full((W, F), -0.0, dtype=torch.float64, device=dv)
+    K = -(-n // _DENSE_CHUNK)
+    pos = torch.arange(n, device=dv)
+    key = (pos // _DENSE_CHUNK) * W + codes.long()
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
+    new = torch.ones(n, dtype=torch.bool, device=dv)
+    new[1:] = sk[1:] != sk[:-1]
+    rank = pos - torch.cummax(torch.where(new, pos, 0), 0).values
+    by_rank = torch.argsort(rank, stable=True)
+    rows, keys = order[by_rank], sk[by_rank]
+    v = torch.stack(vals, 1)
+    acc = torch.full((K * W, F), -0.0, dtype=torch.float64, device=dv)
+    lo = 0
+    for size in torch.bincount(rank).tolist():
+        t = keys[lo:lo + size]
+        acc[t] = acc[t] + v[rows[lo:lo + size]]
+        lo += size
+    x = acc.view(K, W, F)
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        y = x[0:2 * h:2] + x[1:2 * h:2]
+        x = torch.cat([y, x[2 * h:]]) if x.shape[0] % 2 else y
+    return x[0]
+
+
+def dense_agg_plain(codes, n_cells, n_rows, ints=(), fsums=(), mins=(),
+                    maxs=(), want_counts=True, want_fidx=True):
+    """Plain PyTorch version of the dense aggregate over rows
+    [0, n_rows), codes in [0, n_cells). Returns (n_cells,) lanes:
+    counts (i64); fidx / lidx (i64, KEY_MAX / -1 for an empty cell);
+    int{j} the wrapping i64 sum of ints[j] (i32 or i64); fsum{j} the
+    fixed-order sum of fsums[j] (f64; 0.0 for an empty cell); min{j} /
+    max{j} of mins[j] / maxs[j] (i32, i64 or f64, in their type; the
+    losing extreme for an empty cell; f64 through its order bits, so
+    -0.0 and 0.0 never tie)."""
+    c = codes[:n_rows]
+    dv = c.device
+    W = n_cells
+    cells = _cells(c, W, n_rows)
+    out = {}
+    acc = _scatter_sum(cells, W, torch.stack(
+        [x[:n_rows].to(I64) for x in ints] +
+        [torch.ones(n_rows, dtype=I64, device=dv)], 1))
+    cnt = acc[:, -1]
+    if want_counts:
+        out["counts"] = cnt
+    for j in range(len(ints)):
+        out[f"int{j}"] = acc[:, j]
+    if want_fidx:
+        rows = torch.arange(n_rows, dtype=I64, device=dv)
+        out["fidx"] = _scatter_ext(cells, W, rows, "amin")
+        out["lidx"] = _scatter_ext(cells, W, rows, "amax", init=-1)
+    if fsums:
+        tot = _fixed_order_sums(c, [x[:n_rows] for x in fsums], W)
+        for j in range(len(fsums)):
+            out[f"fsum{j}"] = torch.where(cnt == 0, 0.0, tot[:, j])
+    for j, m in enumerate(mins):
+        out[f"min{j}"] = _scatter_ext(cells, W, m[:n_rows], "amin")
+    for j, m in enumerate(maxs):
+        out[f"max{j}"] = _scatter_ext(cells, W, m[:n_rows], "amax")
+    return out
+
+
+# (restype, argtypes) of every extern "C" function of csrc/dense_agg.cu;
+# tests/test_torch_dense_agg.py holds this table against the source
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+DENSE_ARGTYPES = {
+    "rf_dense_agg_chunk": (_I32, []),
+    "rf_dense_agg_scratch_bytes": (_I64, [_I64, _I32, _I32, _I32]),
+    "rf_dense_agg_launches": (_I32, [_I64, _I32, _I32, _I32]),
+    "rf_dense_agg": (_I32, [_P, _I32, _I64, _I64, _I32, _I32, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _P]),
+}
+# the lanes' ops by the source's DA_* number, and the shared memory one
+# dense_pass CTA may take (DA_SMEM) for the cells of a call's lanes (at
+# most DENSE_MAX_LANES): mirrors the tests hold against the source
+_DA_OPS = {"int": 0, "min": 1, "max": 2, "fsum": 3}
+DENSE_MAX_LANES = 24
+DENSE_SMEM = 232448
+
+
+def dense_fits(n_cells, n_acc, n_f):
+    """Whether the cells of n_acc integer words and n_f f64 sums a cell
+    fit one dense_pass CTA of one warp (the source's smem_of at P=1)."""
+    return 8 * (n_acc * n_cells + n_f * n_cells + 32) <= DENSE_SMEM
+
+
+_dlib = None
+
+
+def _dense_lib():
+    global _dlib
+    if _dlib is None:
+        from . import cubuild
+        lib = cubuild.load("dense_agg")
+        try:
+            for name, (res, args) in DENSE_ARGTYPES.items():
+                fn = getattr(lib, name)
+                fn.restype = res
+                fn.argtypes = args
+        except AttributeError as e:
+            raise DeviceError(f"dense aggregate library: {e}") from e
+        if lib.rf_dense_agg_chunk() != _DENSE_CHUNK:
+            raise DeviceError(f"dense aggregate library: chunks of "
+                              f"{lib.rf_dense_agg_chunk()} rows, not "
+                              f"{_DENSE_CHUNK}")
+        _dlib = lib
+    return _dlib
+
+
+def _dense_batches(n_cells, lanes, want_fidx):
+    """The lanes [(name, tensor, op)] cut into calls whose cells fit one
+    CTA: the first call also takes fidx and lidx; every call counts."""
+    batches, cur, n_acc, n_f = [], [], 3 if want_fidx else 1, 0
+    for lane in lanes:
+        f = lane[2] == "fsum"
+        if cur and (len(cur) == DENSE_MAX_LANES or
+                    not dense_fits(n_cells, n_acc + (not f), n_f + f)):
+            batches.append(cur)
+            cur, n_acc, n_f = [], 1, 0
+        cur.append(lane)
+        n_acc, n_f = n_acc + (not f), n_f + f
+        if not dense_fits(n_cells, n_acc, n_f):
+            raise ValueError(f"dense_agg: {n_cells} cells do not fit one "
+                             "CTA's shared memory")
+    if not dense_fits(n_cells, n_acc, n_f):
+        raise ValueError(f"dense_agg: {n_cells} cells do not fit one CTA's "
+                         "shared memory")
+    return batches + [cur]
+
+
+def dense_agg_cuda(codes, n_cells, n_rows, ints=(), fsums=(), mins=(),
+                   maxs=(), want_counts=True, want_fidx=True):
+    """The CUDA dense aggregate (csrc/dense_agg.cu) of CUDA tensors: bit
+    for bit `dense_agg_plain` on the same card, the same lanes. Codes
+    (i32 or i64) and every lane are read in place at their strides (a
+    stride-0 view too). One call of the library is a memset and 2-4
+    kernel launches; lanes whose cells do not fit one CTA together go
+    in more than one call. Any failure to build, load, allocate or
+    launch raises DeviceError."""
+    lanes = [(f"int{j}", x, "int") for j, x in enumerate(ints)] + \
+        [(f"fsum{j}", x, "fsum") for j, x in enumerate(fsums)] + \
+        [(f"min{j}", x, "min") for j, x in enumerate(mins)] + \
+        [(f"max{j}", x, "max") for j, x in enumerate(maxs)]
+    ok = {"int": (torch.int32, torch.int64), "fsum": (torch.float64,),
+          "min": tuple(_KINDS), "max": tuple(_KINDS)}
+    dv = codes.device
+    if codes.dtype not in (torch.int32, torch.int64) or codes.dim() != 1 \
+            or not 0 <= n_rows <= codes.shape[0] or n_cells < 1 or any(
+                x.dtype not in ok[op] or x.dim() != 1 or x.device != dv or
+                x.shape[0] < n_rows for _nm, x, op in lanes):
+        raise ValueError(
+            f"dense_agg: {n_rows} rows of codes {codes.dtype} "
+            f"{tuple(codes.shape)} on {dv} over {n_cells} cells, lanes " +
+            ", ".join(f"{op} {x.dtype} {tuple(x.shape)} on {x.device}"
+                      for _nm, x, op in lanes))
+    batches = _dense_batches(n_cells, lanes, want_fidx)
+    lib = _dense_lib()
+    W = n_cells
+
+    def new(dtype):
+        return torch.empty(W, dtype=dtype, device=dv)
+    out = {nm: new(I64 if op == "int" else x.dtype) for nm, x, op in lanes}
+    if want_counts:
+        out["counts"] = new(I64)
+    if want_fidx:
+        out["fidx"], out["lidx"] = new(I64), new(I64)
+    try:
+        with _card_stream(dv) as stream:
+            for bi, batch in enumerate(batches):
+                k = max(len(batch), 1)
+                fid = want_fidx and bi == 0
+                n_acc = (3 if fid else 1) + \
+                    sum(op != "fsum" for _nm, _x, op in batch)
+                n_f = sum(op == "fsum" for _nm, _x, op in batch)
+                nbytes = lib.rf_dense_agg_scratch_bytes(n_rows, W, n_acc,
+                                                        n_f)
+                scratch = torch.empty(-(-nbytes // 8), dtype=I64, device=dv)
+                rc = lib.rf_dense_agg(
+                    codes.data_ptr(), _KINDS[codes.dtype], codes.stride(0),
+                    n_rows, W, len(batch),
+                    (ctypes.c_void_p * k)(*[x.data_ptr()
+                                            for _nm, x, _op in batch]),
+                    (ctypes.c_int64 * k)(*[x.stride(0)
+                                           for _nm, x, _op in batch]),
+                    (ctypes.c_int * k)(*[_KINDS[x.dtype]
+                                         for _nm, x, _op in batch]),
+                    (ctypes.c_int * k)(*[_DA_OPS[op]
+                                         for _nm, _x, op in batch]),
+                    (ctypes.c_void_p * k)(*[out[nm].data_ptr()
+                                            for nm, _x, _op in batch]),
+                    out["counts"].data_ptr() if want_counts and bi == 0
+                    else None,
+                    out["fidx"].data_ptr() if fid else None,
+                    out["lidx"].data_ptr() if fid else None,
+                    scratch.data_ptr(), stream)
+                if rc != 0:
+                    break
+    except Exception as e:
+        raise DeviceError(f"dense_agg: {type(e).__name__}: {e}") from e
+    if rc != 0:
+        raise DeviceError(f"dense_agg launch failed: cudaError {rc}")
+    with _LAUNCHES_LOCK:
+        LAUNCHES["dense_agg"] += 1
+    return out
+
+
+def _dense_agg(codes, n_cells, n_rows, ints=(), fsums=(), mins=(),
+               maxs=(), want_counts=True, want_fidx=True):
+    """The dense aggregate of `dense_agg_plain`'s contract: on a CUDA
+    tensor the hand-written kernel, on a CPU tensor the plain version;
+    nothing in between."""
+    dev = codes.device
+    args = (codes, n_cells, n_rows, ints, fsums, mins, maxs, want_counts,
+            want_fidx)
+    if dev.type == "cuda":
+        return dense_agg_cuda(*args)
+    if dev.type == "cpu":
+        return dense_agg_plain(*args)
+    raise DeviceError(f"dense_agg: no dense aggregate for device {dev}")
+
+
+# -- the dense scans of the <=512-code select --------------------------------
+
+def dense_scan(codes, n: int, n_rows: int, tasks=(), sums=(), mins=(),
+               maxs=(), want_counts=True, want_fidx=True):
+    """`bcast_scan` and `matmul_tasks_scan` over the same codes in one
+    pass: bcast_scan's lanes, and task{t} the exact sum of tasks[t] as
+    f64, each (n,)."""
+    fs = [i for i, s in enumerate(sums) if s.dtype == torch.float64]
+    isums = [s for i, s in enumerate(sums) if i not in fs]
+    raw = _dense_agg(codes, n + 1, n_rows, list(tasks) + isums,
+                     [sums[i] for i in fs], mins, maxs, want_counts,
+                     want_fidx)
+    out = {}
+    if want_counts:
+        out["counts"] = raw["counts"][:n].to(torch.int32)
+    if want_fidx:
+        out["fidx"], out["lidx"] = raw["fidx"][:n], raw["lidx"][:n]
+    j = len(tasks)
+    for i in range(len(sums)):
+        if i in fs:
+            out[f"sum{i}"] = raw[f"fsum{fs.index(i)}"][:n]
+        else:
+            out[f"sum{i}"] = raw[f"int{j}"][:n].to(torch.float64)
+            j += 1
+    for i in range(len(mins)):
+        out[f"min{i}"] = raw[f"min{i}"][:n]
+    for i in range(len(maxs)):
+        out[f"max{i}"] = raw[f"max{i}"][:n]
+    for t in range(len(tasks)):
+        out[f"task{t}"] = raw[f"int{t}"][:n].to(torch.float64)
+    return out
+
 
 def bcast_scan(codes, n: int, n_rows: int, sums=(), mins=(), maxs=(),
                want_counts=True, want_fidx=True):
@@ -171,45 +431,20 @@ def bcast_scan(codes, n: int, n_rows: int, sums=(), mins=(), maxs=(),
     types and sentinels: counts i32; fidx / lidx i64 first / last row
     ids (KEY_MAX / -1 for an empty code); sum{i} f64; min{i} / max{i}
     of their input's dtype (the losing extreme for an empty code)."""
-    c = codes[:n_rows]
-    dv = c.device
-    W = n + 1
-    cells = _cells(c, W, n_rows)
-    out = {}
-    fsums = [i for i, s in enumerate(sums) if s.dtype == torch.float64]
-    isums = [i for i, s in enumerate(sums) if i not in fsums]
-    # counts and the integer sums: one scatter-add of their stacked rows
-    ints = [s[:n_rows].to(I64) for i, s in enumerate(sums) if i in isums]
-    need_cnt = want_counts or bool(fsums)
-    if need_cnt:
-        ints.append(torch.ones(n_rows, dtype=I64, device=dv))
-    if ints:
-        acc = _scatter_sum(cells, W, torch.stack(ints, 1))
-        for j, i in enumerate(isums):
-            out[f"sum{i}"] = acc[:n, j].to(torch.float64)
-        cnt = acc[:, -1] if need_cnt else None
-    if want_counts:
-        out["counts"] = cnt[:n].to(torch.int32)
-    if want_fidx:
-        rows = torch.arange(n_rows, dtype=I64, device=dv)
-        out["fidx"] = _scatter_ext(cells, W, rows, "amin")[:n]
-        out["lidx"] = _scatter_ext(cells, W, rows, "amax", init=-1)[:n]
-    if fsums:
-        # rows in code order (stable: row order within a code), then
-        # each code's total sits on its last sorted row
-        (sc,), _, perm = sort_lex([c.to(torch.int32)], perm=True)
-        perm = perm.long()
-        ends = torch.clamp(torch.cumsum(cnt, 0)[:n] - 1, min=0)
-        empty = cnt[:n] == 0
-        tot = seg_doubling_sum(sc, torch.stack(
-            [sums[i][:n_rows][perm] for i in fsums], 1))[ends]
-        for j, i in enumerate(fsums):
-            out[f"sum{i}"] = torch.where(empty, 0.0, tot[:, j])
-    for i, m in enumerate(mins):
-        out[f"min{i}"] = _scatter_ext(cells, W, m[:n_rows], "amin")[:n]
-    for i, m in enumerate(maxs):
-        out[f"max{i}"] = _scatter_ext(cells, W, m[:n_rows], "amax")[:n]
-    return out
+    return dense_scan(codes, n, n_rows, (), sums, mins, maxs, want_counts,
+                      want_fidx)
+
+
+def matmul_tasks_scan(codes, weights: list, n_cells: int, n_rows: int):
+    """Exact dense segment sums of each weights[i] (n_rows,) by group
+    code (codes in [0, n_cells)). Returns a list of (n_cells,) f64 sums.
+
+    The weights hold integers (8-bit limbs, ones, null flags), as the
+    TPU package's f32 one-hot matmuls require; here they are integer
+    lanes of the dense aggregate, summed in i64."""
+    raw = _dense_agg(codes, n_cells, n_rows, list(weights),
+                     want_counts=False, want_fidx=False)
+    return [raw[f"int{t}"].to(torch.float64) for t in range(len(weights))]
 
 
 # -- sorted-segment kernels ---------------------------------------------------
@@ -284,7 +519,6 @@ def _scan_forward(seg_ids, vals, op):
 
 # (restype, argtypes) of every extern "C" function of csrc/seg_scan.cu;
 # tests/test_torch_seg_scan.py holds this table against the source
-_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 ARGTYPES = {
     "rf_seg_scan_block": (_I32, []),
     "rf_seg_scan_scratch_bytes": (_I64, [_I64, _I32, _I32]),

@@ -6,7 +6,8 @@ it. The engine is picked by the size of the dense key code space:
 - <= SMALL_N (512) codes, and selects with no `by`: the dense plan
   built here. Where-mask, dense group codes, every aggregate and the
   first-appearance ordering run on the device (engine/groupby.py
-  `bcast_scan`, `matmul_tasks_scan`), and aggregates are FINALIZED
+  `dense_scan`: one dense aggregate pass for the lanes of `bcast_scan`
+  and `matmul_tasks_scan`), and aggregates are FINALIZED
   there (limb sums, avg division, null fixes, output order by a sort of
   first-row ids), so the fetched lanes are the output columns: the host pays one transfer of one packed buffer
   (groupby.Packer). Group keys are decoded arithmetically from the
@@ -433,16 +434,14 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
         codes, arrs, rtypes, lanes = inputs(cols, n_rows, 0)
         n = n_rows
         part = {}
-        if lanes["task"]:
-            dense = G.matmul_tasks_scan(codes, [w for _, w in lanes["task"]],
-                                        NC + 1, n)
-            part.update({nm: x[:NC]
-                         for (nm, _), x in zip(lanes["task"], dense)})
 
-        # ---- one dense pass: counts, first/last rows, sums, extrema -----
-        bc = G.bcast_scan(codes, NC, n,
+        # ---- one dense pass: counts, first/last rows, exact task sums,
+        # sums, extrema ----
+        bc = G.dense_scan(codes, NC, n, [w for _, w in lanes["task"]],
                           *[tuple(x for _, x in lanes[k]) for k in _SCANNED],
                           want_counts=True, want_fidx=True)
+        part.update({nm: bc[f"task{i}"]
+                     for i, (nm, _) in enumerate(lanes["task"])})
         part.update({k: bc[k] for k in ("counts", "fidx", "lidx")})
         for k in _SCANNED:
             part.update({nm: bc[f"{k}{i}"]
@@ -666,7 +665,8 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
     return plan
 
 
-# the lanes bcast_scan takes, in its argument order
+# the lanes bcast_scan (and dense_scan after its tasks) takes, in its
+# argument order
 _SCANNED = ("sum", "min", "max")
 
 

@@ -31,13 +31,11 @@ def step(keys, values, prices):
     the trash code N_GROUPS."""
     n = keys.shape[0]
     codes = torch.where(prices > 50.0, keys.to(torch.int32), N_GROUPS)
-    s, c = G.matmul_tasks_scan(
-        codes, [values, torch.ones(n, dtype=torch.int32,
-                                   device=keys.device)],
-        N_GROUPS + 1, n)
-    bc = G.bcast_scan(codes, N_GROUPS, n, mins=(prices.to(torch.float64),),
-                      want_counts=False, want_fidx=True)
-    return s[:N_GROUPS], c[:N_GROUPS], bc["min0"], bc["fidx"]
+    bc = G.dense_scan(
+        codes, N_GROUPS, n,
+        tasks=[values, torch.ones(n, dtype=torch.int32, device=keys.device)],
+        mins=(prices.to(torch.float64),), want_counts=False, want_fidx=True)
+    return bc["task0"], bc["task1"], bc["min0"], bc["fidx"]
 
 
 def entry(device=None):

@@ -450,9 +450,10 @@ def _sort_perm(keys):
 # -- distributed dense group-by ----------------------------------------------
 #
 # Per-shard partials come from the engine's own dense pipeline
-# (groupby.bcast_scan and its exact integer sums); the cross-shard
-# combine is psum / pmin / pmax. f64 sums are bcast_scan's code sort +
-# segmented scan, so a rerun on the card is bit for bit the same.
+# (groupby.dense_scan: bcast_scan's lanes and the exact integer sums in
+# one pass); the cross-shard combine is psum / pmin / pmax. f64 sums are
+# added in the dense aggregate's fixed order, so a rerun on the card is
+# bit for bit the same.
 # dist_select_small is the kernel of the dense plan on a mesh
 # (engine/select.py `spmd`); the narrower kernels below are entries over
 # its shard stage, kept at the reference's signatures and byte counts.
@@ -463,7 +464,8 @@ def _select_small(n_codes, shard_rows_n, codes, ints=(), sums=(), mins=(),
     `mins`, `maxs`: lanes, each a per-shard list)."""
     def part(me, c):
         n = int(c.shape[0])
-        bc = G.bcast_scan(c, n_codes, n, sums=tuple(x[me] for x in sums),
+        bc = G.dense_scan(c, n_codes, n, tasks=[w[me] for w in ints],
+                          sums=tuple(x[me] for x in sums),
                           mins=tuple(x[me] for x in mins),
                           maxs=tuple(x[me] for x in maxs),
                           want_counts=True, want_fidx=True)
@@ -472,12 +474,8 @@ def _select_small(n_codes, shard_rows_n, codes, ints=(), sums=(), mins=(),
              "fidx": torch.where(bc["fidx"] == KEY_MAX, KEY_MAX,
                                  bc["fidx"] + off),
              "lidx": torch.where(bc["lidx"] < 0, -1, bc["lidx"] + off)}
-        if ints:
-            dense = G.matmul_tasks_scan(c, [w[me] for w in ints],
-                                        n_codes + 1, n)
-            p.update({f"task{i}": x[:n_codes] for i, x in enumerate(dense)})
         p.update((k, v) for k, v in bc.items()
-                 if k.startswith(("sum", "min", "max")))
+                 if k.startswith(("task", "sum", "min", "max")))
         return p
 
     parts = smap(part, codes)
@@ -1000,13 +998,13 @@ def dist_med_groupby(mesh: Mesh, rows_local: int, cap: int,
         heavy_meds = rank_select(cand_rows, lanes)
 
         def heavy_first(me, c, cr):
+            # per candidate, its rows' first global row id and count over
+            # the K + 1 dense cells (most rows go to the non-candidate K)
             n = int(c.shape[0])
-            rid = me * n + torch.arange(n, device=c.device)
-            # integer scatters spread over copies of the K + 1 cells
-            # (groupby._cells): most rows hit the non-candidate cell
-            cells = G._cells(cr[1], K + 1, n)
-            return (G._scatter_ext(cells, K + 1, rid, "amin")[:K],
-                    G._scatter_sum(cells, K + 1, torch.ones_like(rid))[:K])
+            bc = G.bcast_scan(cr[1], K, n)
+            return (torch.where(bc["fidx"] == KEY_MAX, KEY_MAX,
+                                bc["fidx"] + me * n),
+                    bc["counts"].to(I64))
         hfc = smap(heavy_first, codes, cand_rows)
         hfid = here(pmin(pick(hfc, 0)))
         hcnt = here(psum(pick(hfc, 1)))

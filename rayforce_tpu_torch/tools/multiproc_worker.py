@@ -13,10 +13,11 @@ the collectives on seeded shards (`collective_cases`), then every query of
 and the mesh group-by, the medians, the join probes, the table sorts and
 the window joins, over tools/jtables.py's tables at `--rows` rows. Each
 result is printed as one line `MP {json}`: the engine it ran, the
-modelled exchanged bytes (parallel/dist.py `stats`), the radix sort's
-and the segmented scan's launches and the scan's calls by shape, the
-formatted output, a digest of every column's bytes, the
-wall times and whether every rerun gave the same bytes. The last line
+modelled exchanged bytes (parallel/dist.py `stats`), the radix sort's,
+the segmented scan's and the dense aggregate's launches, the scan's and
+the dense aggregate's calls by shape, the formatted output, a digest
+of every column's bytes, the wall times and whether every rerun gave
+the same bytes. The last line
 is MULTIPROC_OK.
 """
 from __future__ import annotations
@@ -31,6 +32,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -179,6 +181,42 @@ def count_scans(shapes):
         G.seg_scan_cuda, G.seg_scan_plain = real
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def count_dense(shapes, calls=None):
+    """Count, in `shapes`, each call of the dense aggregate by "rows x
+    cells: lanes" (the ops of its lanes: int, fsum, min, max), with
+    " plain" added for a call of the plain version; parted selects call
+    from worker threads. `calls`, a list, also gets (key, args, kwargs)
+    of every kernel call."""
+    from ..engine import groupby as G
+    real = G.dense_agg_cuda, G.dense_agg_plain
+
+    def counted(fn, tag):
+        def f(codes, n_cells, n_rows, ints=(), fsums=(), mins=(), maxs=(),
+              *a, **k):
+            lanes = " ".join(f"{op}{len(x)}" for op, x in (
+                ("int", ints), ("fsum", fsums), ("min", mins),
+                ("max", maxs)) if x)
+            key = f"{n_rows}x{n_cells}: {lanes or '-'}{tag}"
+            with _COUNT_LOCK:
+                shapes[key] = shapes.get(key, 0) + 1
+                if calls is not None and not tag:
+                    calls.append((key, (codes, n_cells, n_rows, ints, fsums,
+                                        mins, maxs) + a, k))
+            return fn(codes, n_cells, n_rows, ints, fsums, mins, maxs, *a,
+                      **k)
+        return f
+    G.dense_agg_cuda = counted(real[0], "")
+    G.dense_agg_plain = counted(real[1], " plain")
+    try:
+        yield shapes
+    finally:
+        G.dense_agg_cuda, G.dense_agg_plain = real
+
+
 def run_query(rts, name, reps=1, device="cpu") -> dict:
     """QUERIES[name] once, recorded, then `reps` timed reruns, each held
     to the first run's bytes."""
@@ -201,9 +239,10 @@ def run_query(rts, name, reps=1, device="cpu") -> dict:
                      ew.last_profile):
             prof.clear()
         dist.reset_stats()
-        psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["seg_scan"] = 0
-        shapes = {}
-        with count_scans(shapes):
+        psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["seg_scan"] = \
+            psort.LAUNCHES["dense_agg"] = 0
+        shapes, dense = {}, {}
+        with count_scans(shapes), count_dense(dense):
             out, first_ms = timed(rt, q, device)
         rec = {"query": name,
                "engine": engine_of(kind),
@@ -212,6 +251,8 @@ def run_query(rts, name, reps=1, device="cpu") -> dict:
                "launches": psort.LAUNCHES["radix_sort"],
                "seg_scan_launches": psort.LAUNCHES["seg_scan"],
                "seg_scan_shapes": shapes,
+               "dense_agg_launches": psort.LAUNCHES["dense_agg"],
+               "dense_agg_shapes": dense,
                "digest": digest(out), "out": format_top(out),
                "rows": len(out)}
         del out

@@ -6,7 +6,7 @@ card.
 
     python -m rayforce_tpu_torch.tools.sortprof [--rows N] [--out DIR]
         [--queries q1,q7,ij,aj,wj,wj0,...] [--no-sort] [--no-queries]
-        [--seg-scan] [--mesh N]
+        [--seg-scan] [--dense] [--mesh N]
 
 With --mesh N every query runs on an N-shard mesh on the card
 (RAYFORCE_MESH=N; its shards share the card): the grouped selects, and
@@ -33,10 +33,18 @@ device time of every launch of one scan (integer values: the memset of
 the look-back words and the one block pass; f64: block pass, tail pass,
 fix-up) and the plain version's device time.
 
+With --dense the dense aggregate (engine/csrc/dense_agg.cu) is profiled
+too, on the inputs the dense plan's queries give it (tools.g1.QUERIES
+q1, q4, med, no_by and small_where on a --rows-row G1 table) and the
+flagship step's (entry.py): for each the lanes, the device time of
+every launch of one call (the memset of the global cells, the pass, the
+tree passes, the finish) and the plain version's device time.
+
 Prints, per profiled region, the device time by kernel name (the top 14
-and every seg_scan kernel) and the region's wall time, device-busy time
-and idle share, and writes the Chrome traces under --out; per query
-also the radix sort's and the scan's launches in one run. A join,
+and every seg_scan and dense_agg kernel) and the region's wall time,
+device-busy time and idle share, and writes the Chrome traces under
+--out; per query also the radix sort's, the scan's and the dense
+aggregate's launches in one run. A join,
 table sort or window join's run forces every lazy output column.
 Numbers are only meaningful on the card.
 """
@@ -74,7 +82,7 @@ def _report(tag, prof, wall_ms, reps, out):
           f"{busy:.3f} ms/run, idle share "
           f"{max(0.0, 1 - busy / wall_ms):.3f}")
     for i, (name, ms, calls) in enumerate(rows):
-        if i < 14 or "seg_scan::" in name:
+        if i < 14 or "seg_scan::" in name or "dense_agg::" in name:
             print(f"   {ms / reps:9.4f} ms/run  {calls // reps:4d}x  "
                   f"{name[:90]}")
     if out:
@@ -170,6 +178,34 @@ def _join_scan_shapes(torch, n):
     return out
 
 
+DENSE_QUERIES = ("q1", "q4", "med", "no_by", "small_where")
+
+
+def dense_calls(torch, n):
+    """{shape: the arguments of its dense_agg_cuda call}: the first call
+    of each of DENSE_QUERIES on an n-row G1 table, and the flagship
+    step's. chip_smoke.py times the same calls."""
+    from rayforce_tpu_torch import Runtime
+    from rayforce_tpu_torch.core import symbols
+    from rayforce_tpu_torch.entry import entry
+    from .g1 import QUERIES, g1_table
+    from .multiproc_worker import count_dense
+    rt = Runtime()
+    rt.interp.globals[symbols.intern("t")] = g1_table(n, "cuda")
+    out = {}
+    for name in DENSE_QUERIES + ("entry",):
+        calls = []
+        with count_dense({}, calls):
+            if name == "entry":
+                step, args = entry()
+                step(*args)
+            else:
+                rt.eval_str(QUERIES[name][0])
+        out[name] = calls[0][1]
+    torch.cuda.synchronize()
+    return out
+
+
 def _profile(tag, fn, reps, out):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -200,6 +236,9 @@ def main(argv=None):
     ap.add_argument("--seg-scan", action="store_true",
                     help="profile the segmented scan at its main-path "
                     "shapes")
+    ap.add_argument("--dense", action="store_true",
+                    help="profile the dense aggregate at the dense "
+                    "queries' inputs")
     ap.add_argument("--mesh", type=int, default=0,
                     help="run the grouped selects on an N-shard mesh")
     args = ap.parse_args(argv)
@@ -252,6 +291,19 @@ def main(argv=None):
               f"{sum(d for _n, d in plain) / 1e3:.4f} ms device")
         for name, dur in split:
             print(f"   {dur:9.2f} us  {name[:90]}")
+    for tag, call in dense_calls(torch, n).items() if args.dense else ():
+        split = launch_split(lambda: G.dense_agg_cuda(*call))
+        plain = launch_split(lambda: G.dense_agg_plain(*call))
+        lanes = {k: [str(x.dtype)[6:] for x in v] for k, v in
+                 zip(("int", "fsum", "min", "max"), call[3:7]) if v}
+        print(f"== dense_agg {tag}: {call[2]} rows x {call[1]} cells, "
+              f"lanes {json.dumps(lanes, separators=(',', ':'))}: "
+              f"{len(split)} launches, "
+              f"{sum(d for _n, d in split) / 1e3:.4f} ms device; plain "
+              f"{len(plain)} launches, "
+              f"{sum(d for _n, d in plain) / 1e3:.4f} ms device")
+        for name, dur in split:
+            print(f"   {dur:9.2f} us  {name[:90]}")
     if args.no_queries:
         return 0
 
@@ -288,7 +340,8 @@ def main(argv=None):
         launches = {k: psort.LAUNCHES[k] - before[k] for k in before}
         _profile(name, run, args.reps, args.out)
         print(f"   sort launches per run {launches['radix_sort']}, scan "
-              f"launches per run {launches['seg_scan']}")
+              f"launches per run {launches['seg_scan']}, dense launches "
+              f"per run {launches['dense_agg']}")
         if name in joins:
             prof = es.last_profile if q.startswith("(x") else \
                 ew.last_profile if q.startswith("(window") else \

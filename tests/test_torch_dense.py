@@ -20,6 +20,7 @@ from rayforce_tpu.engine import select as rsel
 from rayforce_tpu_torch.core import types as T
 from rayforce_tpu_torch.core.fmt import format_top as fmt
 from rayforce_tpu_torch.engine import device as dev
+from rayforce_tpu_torch.engine import groupby as G
 from rayforce_tpu_torch.engine import psort
 from rayforce_tpu_torch.engine import select as sel
 from test_torch_sortagg import _runtimes
@@ -134,9 +135,32 @@ def test_dense_sorts_through_the_psort_entry(parity):
         psort.sort_i32_plain = plain
     # two med (code, value) sorts: i32 code + i32 key, i32 code + f64
     # key as two words; the order sort: first-row ids as one i32 word
-    # (the permutation comes back from the sort); no f64 sum lane, so no
-    # code sort for one
+    # (the permutation comes back from the sort)
     assert sorted(calls) == [1, 2, 3]
+
+
+@pytest.mark.parametrize("q", [DENSE[1], DENSE[4]])
+def test_dense_f64_sums_take_no_code_sort(parity, q):
+    """f64 sums are added in the dense aggregate's fixed order
+    (groupby._fixed_order_sums), not by a code sort and a scan: a dense
+    select with f64 sums sorts once, the order sort of its groups'
+    first-row ids, and scans nothing."""
+    calls, scans = [], []
+    plain, scan = psort.sort_i32_plain, G.seg_scan_plain
+
+    def counting(words, n_keys=1, perm=False):
+        calls.append(n_keys)
+        return plain(words, n_keys, perm=perm)
+
+    def counting_scan(*a, **k):
+        scans.append(1)
+        return scan(*a, **k)
+    psort.sort_i32_plain, G.seg_scan_plain = counting, counting_scan
+    try:
+        _check(*parity, q, engine="dense")
+    finally:
+        psort.sort_i32_plain, G.seg_scan_plain = plain, scan
+    assert calls == [1] and not scans
 
 
 def test_full_width_sum_wraps_and_avg_is_exact():
