@@ -61,8 +61,12 @@ Phases, each reported on its own line:
              inf in a cell) and magnitudes from 1e-300 to 1e300, i64
              extrema with KEY_MAX and I64_MIN, f64 extrema with NaN of
              either sign, +-0.0 and +-inf, an i32 min; counts and then
-             first/last row ids left out; at 1e7 rows three runs a
-             case, equal every time;
+             first/last row ids left out; every lane as a strided and
+             as a misaligned view; at 1e7 rows three runs a case, equal
+             every time; then tools/denseparts.py's three synthetic
+             shapes at 1e7 rows (half the rows on a trash code, 7
+             codes, 512 codes), three equal runs each, and a
+             [dense_time] line for each;
 4. main path the db-benchmark G1_1e7_1e2 table (1e7 rows, K=100) made
              on the card from a seeded torch.Generator, and the grouped
              selects of every engine through Runtime().eval_str: bench
@@ -80,13 +84,15 @@ Phases, each reported on its own line:
              SCAN_QUERIES must launch the scan kernel and none may run
              the plain version (phases 5, 6, 8, 9 and 10 print and
              check the same line); a [dense_shapes] line its dense
-             aggregates: each dense query (DENSE_QUERIES) must launch
-             the dense kernel and none may run its plain version
+             aggregates by rows, cells, lanes and how the kernel reads
+             the codes and lanes: each dense query (DENSE_QUERIES) must
+             launch the dense kernel and none may run its plain version
              (phases 7, 8, 10 and 11 the same). Then each query's warm
              median exec_ms over 3 runs, and one [dense_time] line per
              dense query on the inputs it gave the dense aggregate:
-             kernel, plain and torch-scatter-route ms, the byte bound,
-             launches and memsets of one call;
+             kernel, plain, torch-scatter-route and torch.bincount ms,
+             the byte bound, the kernel launches, library calls and
+             load route of one call;
 5. joins     bench.py's join tables made on the card (tools/jtables.py:
              the G1 table, a 1e6-row right table, 1e7 trades and 2e7
              quotes), and the joins and table sorts through
@@ -799,42 +805,68 @@ def check_dense_agg(G, torch, gen):
     bit for bit in every lane: DENSE_CODES codes plus the trash code over
     DENSE_SIZES rows; i32 codes, i64 codes as a strided view, every row on
     one code and a stride-0 view of one code; every lane of
-    `_dense_lanes`; counts and then first/last row ids left out; at ROWS
-    each case DENSE_REPEATS times, equal every time. Returns the number
-    of cases."""
+    `_dense_lanes`, and the same lanes as a strided and as a misaligned
+    view (`_lane_view`); counts and then first/last row ids left out; at ROWS
+    each case DENSE_REPEATS times, equal every time. Then the three
+    synthetic shapes of tools/denseparts.py at ROWS, DENSE_REPEATS times
+    each. Returns the number of cases."""
+    from rayforce_tpu_torch.tools import denseparts
     dev = torch.device("cuda")
     cases = 0
     for rows in DENSE_SIZES:
         lanes = _dense_lanes(torch, gen, dev, rows)
         reps = DENSE_REPEATS if rows == ROWS else 1
         for n in DENSE_CODES:
-            runs = [(kind, True, True) for kind in
+            runs = [(kind, True, True, None) for kind in
                     ("random", "i64_view", "one", "stride0")] + \
-                [("random", False, True), ("random", True, False)]
-            for kind, counts, fidx in runs:
+                [("random", False, True, None), ("random", True, False, None),
+                 ("random", True, True, "strided"),
+                 ("random", True, True, "offset")]
+            for kind, counts, fidx, view in runs:
                 codes = _dense_codes(torch, gen, dev, n, rows, kind)
-                args = (codes, n + 1, rows, lanes["ints"], lanes["fsums"],
-                        lanes["mins"], lanes["maxs"], counts, fidx)
-                want = G.dense_agg_plain(*args)
-                for rep in range(reps):
-                    got = G.dense_agg_cuda(*args)
-                    if not _same_dense(torch, got, want):
-                        bad = [k for k in want if k not in got or
-                               not _same_scan(torch, got[k], want[k])]
-                        raise AssertionError(
-                            f"dense_agg differs: {rows} rows, {n} codes "
-                            f"{kind}, counts={counts} fidx={fidx}, lanes "
-                            f"{bad} (run {rep + 1} of {reps})")
+                ls = {k: tuple(_lane_view(torch, x, view) for x in v)
+                      for k, v in lanes.items()} if view else lanes
+                args = (codes, n + 1, rows, ls["ints"], ls["fsums"],
+                        ls["mins"], ls["maxs"], counts, fidx)
+                _check_dense(G, torch, args, reps,
+                             f"{rows} rows, {n} codes {kind}, "
+                             f"counts={counts} fidx={fidx} lanes={view}")
                 cases += 1
         del lanes
+    for name, args in denseparts._synthetic(torch, ROWS).items():
+        _check_dense(G, torch, args, DENSE_REPEATS, f"shape {name}")
+        cases += 1
     torch.cuda.synchronize()
     return cases
 
 
+def _lane_view(torch, x, how):
+    """x's values as every other element of a (n, 2) tensor ("strided")
+    or one element past a 16-byte boundary ("offset"), read in place."""
+    if how == "strided":
+        return torch.stack([x, x], 1)[:, 0]
+    buf = torch.empty(x.shape[0] + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x
+    return buf[1:]
+
+
+def _check_dense(G, torch, args, reps, what):
+    want = G.dense_agg_plain(*args)
+    for rep in range(reps):
+        got = G.dense_agg_cuda(*args)
+        if not _same_dense(torch, got, want):
+            bad = [k for k in want if k not in got or
+                   not _same_scan(torch, got[k], want[k])]
+            raise AssertionError(f"dense_agg differs: {what}, lanes {bad} "
+                                 f"(run {rep + 1} of {reps})")
+
+
 def dense_launches(G, call):
-    """(kernel launches, memsets) of one dense_agg_cuda call with these
-    arguments: each library call of the wrapper (G._dense_batches) is one
-    memset and rf_dense_agg_launches kernels."""
+    """(kernel launches, library calls, load route) of one dense_agg_cuda
+    call with these arguments: each library call of the wrapper
+    (G._dense_batches) launches rf_dense_agg_launches kernels; the route
+    is how the kernel reads the codes and the lanes
+    (G.dense_load_route)."""
     codes, W, n, ints, fsums, mins, maxs, _counts, fidx = call
     lanes = [("", x, "int") for x in ints] + \
         [("", x, "fsum") for x in fsums] + \
@@ -846,7 +878,11 @@ def dense_launches(G, call):
         n_f = sum(op == "fsum" for _nm, _x, op in b)
         k += lib.rf_dense_agg_launches(
             n, W, (3 if fidx and bi == 0 else 1) + len(b) - n_f, n_f)
-    return k, len(batches)
+    route = "codes " + G.dense_load_route(codes, True)
+    if lanes:
+        route += ", lanes " + "+".join(sorted(
+            {G.dense_load_route(x) for _nm, x, _op in lanes}))
+    return k, len(batches), route
 
 
 def scatter_route(G, psort, torch, codes, W, n, ints, fsums, mins, maxs,
@@ -893,25 +929,29 @@ def dense_bytes(call):
 def time_dense(G, psort, torch, name, call):
     """Kernel, plain and torch-scatter-route ms (CUDA events, median of
     11; the plain version of 3) of one dense aggregate on the inputs a
-    query gave it, its byte bound and its launches; the kernel's output
+    query gave it, and the ms of torch.bincount of its codes (the one
+    PyTorch call that computes one of its outputs, the counts); its byte
+    bound, launches, library calls and load route; the kernel's output
     equals the plain version's bit for bit."""
     codes, W, n, ints, fsums, mins, maxs, _c, _f = call
     if not _same_dense(torch, G.dense_agg_cuda(*call),
                        G.dense_agg_plain(*call)):
         raise AssertionError(f"dense_agg differs at shape {name}")
-    launches, memsets = dense_launches(G, call)
+    launches, lib_calls, route = dense_launches(G, call)
     return {"shape": name, "rows": n, "cells": W,
             "lanes": json.dumps({k: [str(x.dtype)[6:] for x in v] for k, v
                                  in (("int", ints), ("fsum", fsums),
                                      ("min", mins), ("max", maxs)) if v},
                                 separators=(",", ":")),
-            "code_stride": codes.stride(0),
-            "launches": launches, "memsets": memsets,
+            "code_stride": codes.stride(0), "route": json.dumps(route),
+            "launches": launches, "library_calls": lib_calls,
             "ms": cuda_ms(lambda: G.dense_agg_cuda(*call)),
             "plain_ms": cuda_ms(lambda: G.dense_agg_plain(*call), reps=3,
                                 warm=1),
             "library_ms": cuda_ms(lambda: scatter_route(G, psort, torch,
                                                         *call)),
+            "bincount_ms": cuda_ms(lambda: torch.bincount(codes[:n],
+                                                          minlength=W)),
             "bound_ms": dense_bytes(call) / HBM_BYTES_PER_S * 1e3}
 
 
@@ -2118,6 +2158,7 @@ def main():
     from rayforce_tpu_torch.engine import cubuild, psort
     from rayforce_tpu_torch.engine import device as dev
     from rayforce_tpu_torch.engine import groupby as G
+    from rayforce_tpu_torch.tools import denseparts
     from rayforce_tpu_torch.tools.sortprof import seg_scan_shapes
 
     # 1. card
@@ -2166,6 +2207,10 @@ def main():
           codes=list(DENSE_CODES), cases=dense_cases,
           repeats=DENSE_REPEATS, max_abs_err=0,
           seconds=round(time.perf_counter() - t0, 3))
+    dense_times = [time_dense(G, psort, torch, name, call) for name, call
+                   in denseparts._synthetic(torch, ROWS).items()]
+    for r in dense_times:
+        phase("dense_time", **r)
 
     # 4. the main path at full size
     main_launches, per_query, _ms, shapes, single, main_scans, \
@@ -2173,9 +2218,9 @@ def main():
     phase("main_path", launches=main_launches, seg_scan_launches=main_scans,
           dense_agg_launches=main_dense,
           per_query=json.dumps(per_query, separators=(",", ":")))
-    dense_times = [time_dense(G, psort, torch, name, call)
-                   for name, call in dense_calls.items()]
-    for r in dense_times:
+    for name, call in dense_calls.items():
+        r = time_dense(G, psort, torch, name, call)
+        dense_times.append(r)
         phase("dense_time", **r)
     del dense_calls
     phase("sort_shapes", calls=json.dumps(

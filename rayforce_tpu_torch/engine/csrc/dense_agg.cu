@@ -39,31 +39,42 @@
 // argument the compiler cannot fold (seg_scan.cu `apply`), so which NaN an
 // inf - inf gives is the plain version's too.
 //
-// Design. dense_pass: a CTA of P <= DA_WARPS warps takes aligned groups
-// of P chunks, one warp a chunk, 32 * DA_UNROLL rows a step. Its cells
-// sit in shared memory, each warp's own: a u64 word per cell for the
-// count, fidx, lidx and every integer or extremum lane, a double per cell
-// for every f64 sum. Every integer word is a wrapping u64 add or a u64
-// max that starts at 0: a max lane holds x ^ SIGN, a min lane its
-// complement. A warp groups its 32 rows by code (__match_any_sync); the
-// group's first lane counts it and offers its row to fidx, its last lane
-// to lidx; a value lane whose 32 rows hold one code (every row of a no-by
-// select) is reduced by shuffles, otherwise each group's first lane
-// combines its members' words through the warp's stage; then that one
-// lane updates the warp's word with a plain load and store. So the row
-// loop has no atomics: 64-bit shared atomics are CAS loops on sm_90, and
-// the lanes of one code would queue on one word. Where 8 warps' integer
-// cells would not leave room for two CTAs an SM (many cells and lanes),
-// the CTA shares one set and that lane updates it by an atomic instead
-// (private_cells). f64 sums fold in the warp's own cells: the group's
-// first lane folds its members in lane order, which is row order. At the
-// end of a group the P chunk partials combine by the tree's first
-// log2(P) levels in shared memory and the group's node goes to scratch.
+// Design: two launches a call, dense_pass and dense_finish, and no
+// memset. dense_pass: a persistent CTA of P <= DA_WARPS warps takes
+// aligned groups of P chunks (group g, g + grid, ...), one warp a chunk,
+// 32 * DA_UNROLL rows a step. Its cells sit in shared memory, each
+// warp's own: a u64 word per cell for the count, fidx, lidx and every
+// integer or extremum lane, a double per cell for every f64 sum. Every
+// integer word is a wrapping u64 add or a u64 max that starts at 0: a
+// max lane holds x ^ SIGN, a min lane its complement. A warp groups its
+// 32 rows by code (__match_any_sync); the group's first lane counts it
+// and offers its row to fidx, its last lane to lidx; a value lane whose
+// 32 rows hold one code (every row of a no-by select) is reduced by
+// shuffles, otherwise each group's first lane combines its members'
+// words through the warp's stage; then that one lane updates the warp's
+// word with a plain load and store. So the row loop has no atomics:
+// 64-bit shared atomics are CAS loops on sm_90, and the lanes of one
+// code would queue on one word. Where 8 warps' integer cells would not
+// leave room for two CTAs an SM (many cells and lanes), the CTA shares
+// one set and that lane updates it by an atomic instead (private_cells).
+// f64 sums fold in the warp's own cells: the group's first lane folds
+// its members in lane order, which is row order (32 rows of one code
+// straight from the stage, every load ahead of the adds). At the end of
+// a group the P chunk partials combine by the tree's first log2(P)
+// levels in shared memory and the group's node goes to device memory.
 // When a CTA is done it combines its warps' words and adds them to the
-// global ones (zeroed by one memset) with atomics.
-// dense_tree: DA_TREE nodes into one, one thread a (node, cell, lane),
-// until at most DA_TREE are left; dense_finish: those into the cell's
-// sum, the empty cells' sentinels, and every output in its type.
+// call's global words with atomics.
+// dense_finish: CTA b combines group nodes [DA_TREE b, DA_TREE (b + 1))
+// by the tree into level 1's node b; the CTA that finishes last (a
+// ticket after __threadfence) combines the levels above, DA_TREE nodes
+// into one, up to the root, then writes every output in its type from
+// the global words and the root, the empty cells' sentinels too, and
+// zeroes the words and the ticket, so that the next call needs no
+// memset. Folding dense_finish into dense_pass's last CTA (one launch a
+// call) raised the pass's register pressure and cost its row loop more
+// at 1e7 rows than the launch saves (PERF.md). The host asks for the
+// shared-memory attribute and the occupancy once per kernel, device and
+// size.
 //
 // Bound: memory. The yardstick is one read of the codes and of every lane
 // and one write of the (W,) outputs. The kernel adds a reset and a
@@ -71,19 +82,28 @@
 // and reads back a group's node (W words an f64 lane per P * 1024 rows),
 // and a combine of every warp's words per CTA.
 //
-// Scratch comes from the caller in one buffer (rf_dense_agg_scratch_bytes);
-// every launch runs on the caller's stream and nothing synchronises.
+// Scratch comes from the caller in one buffer of rf_dense_agg_scratch_bytes
+// whose first DA_ZERO_BYTES are zero, and are zero again when the call is
+// done (the caller keeps one such buffer per stream); both launches run
+// on the caller's stream and nothing synchronises.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 #define DA_CHUNK 1024          // rows a warp folds into one partial
 #define DA_WARPS 8             // most warps (chunks) of a CTA, P
 #define DA_UNROLL 4            // 32-row steps a lane loads at once
-#define DA_TREE 32             // nodes a tree thread combines into one
+#define DA_TREE 32             // group nodes an aligned block combines
 #define DA_MAX_LANES 24        // value lanes of one call
 #define DA_SMEM 232448         // shared memory a block may use on sm_90
 #define DA_CTAS_PER_SM 8       // most dense_pass CTAs an SM is given
+#define DA_LEVELS 8            // most levels of group nodes
+#define DA_FINISH_THREADS 256  // threads of a dense_finish CTA
+#define DA_ZERO_BYTES 232704   // DA_SMEM + 256: the words and the ticket
+
+static_assert(DA_ZERO_BYTES == DA_SMEM + 256, "the zeroed scratch");
 
 enum { DA_SUM = 0, DA_MIN = 1, DA_MAX = 2, DA_FSUM = 3 };
 enum { KIND_I32 = 0, KIND_I64 = 1, KIND_F64 = 2 };
@@ -115,12 +135,16 @@ struct Params {
   int n_acc;           // integer words a cell: counts, fidx, lidx, lanes
   int n_f;             // f64 sum lanes
   int fidx;            // words 1 and 2 are fidx and lidx
+  int levels;          // levels of group nodes (level 0: the groups)
   u64 add_slots;       // bit s: word s adds (else it takes the max)
   int64_t* counts;     // outputs or null
   int64_t* fidx_out;
   int64_t* lidx_out;
-  u64* acc;            // (n_acc, W) global cells, zeroed before dense_pass
-  double* part;        // (groups, n_f, W) group nodes
+  u64* acc;            // (n_acc, W) global words, zero at the start
+  unsigned* ticket;    // CTAs done, zero at the start
+  double* nodes;       // group nodes, level after level, (level_n, n_f, W)
+  int64_t level_n[DA_LEVELS];
+  int64_t level_off[DA_LEVELS];  // in doubles
   double one;          // 1.0
   Lane lane[DA_MAX_LANES];
 };
@@ -186,6 +210,97 @@ __device__ __forceinline__ void cell_put(u64* c, u64 v, bool add) {
     *c = add ? o + v : (v > o ? v : o);
   } else {
     cell_op(c, v, add);
+  }
+}
+
+// the tree over cnt <= DA_TREE nodes at base[k * stride], level by level,
+// an odd last node passed up: a binary counter of blocks in registers
+__device__ __forceinline__ double tree_of(const double* base,
+                                          int64_t stride, int cnt,
+                                          double one) {
+  // every load issued before the first add (a node past cnt reads node
+  // 0), by volatile loads that the compiler cannot sink into the adds'
+  // branches one by one
+  double v[DA_TREE];
+#pragma unroll
+  for (int k = 0; k < DA_TREE; ++k)
+    asm volatile("ld.global.cg.f64 %0, [%1];"
+                 : "=d"(v[k])
+                 : "l"(base + (k < cnt ? k : 0) * stride));
+  double blk[6];
+#pragma unroll
+  for (int k = 0; k < DA_TREE; ++k) {
+    if (k < cnt) {
+      double x = v[k];
+      int lv = 0;
+#pragma unroll
+      for (; lv < 5 && ((k >> lv) & 1); ++lv) x = __fma_rn(one, x, blk[lv]);
+      blk[lv] = x;
+    }
+  }
+  double node = 0.0;
+  bool have = false;
+#pragma unroll
+  for (int lv = 0; lv < 6; ++lv) {
+    if ((cnt >> lv) & 1) {
+      node = have ? __fma_rn(one, node, blk[lv]) : blk[lv];
+      have = true;
+    }
+  }
+  return node;
+}
+
+__device__ __forceinline__ long long init_of(int kind, int op) {
+  if (kind == KIND_I32) return op == DA_MIN ? INT32_MAX : INT32_MIN;
+  if (kind == KIND_I64) return op == DA_MIN ? INT64_MAX : INT64_MIN;
+  // +inf; -inf's order word
+  return op == DA_MIN ? 0x7FF0000000000000LL
+                      : (long long)0xFFF0000000000000ULL ^
+                            0x7FFFFFFFFFFFFFFFLL;
+}
+
+// the last CTA: every output in its type from the call's words and the
+// root of the group nodes, the empty cells' sentinels too; the words
+// zeroed again
+__device__ void finish(const Params& p) {
+  const int W = p.W;
+  const int64_t WI = (int64_t)p.n_acc * W;
+  const double* root = p.nodes + p.level_off[p.levels - 1];
+  for (int c = threadIdx.x; c < W; c += blockDim.x) {
+    const u64 cnt = __ldcg(p.acc + c);
+    if (p.counts) p.counts[c] = (int64_t)cnt;
+    if (p.fidx) {
+      p.fidx_out[c] = dec_min(__ldcg(p.acc + W + c));
+      const u64 l = __ldcg(p.acc + 2 * W + c), none = enc_max(-1);
+      p.lidx_out[c] = dec_max(l > none ? l : none);
+    }
+    for (int l = 0; l < p.n_lanes; ++l) {
+      const Lane& L = p.lane[l];
+      if (L.op == DA_FSUM) {
+        const double r = p.n ? __ldcg(root + (int64_t)L.slot * W + c) : -0.0;
+        ((double*)L.out)[c] = cnt ? r : 0.0;
+        continue;
+      }
+      const u64 u = __ldcg(p.acc + (int64_t)L.slot * W + c);
+      long long x;
+      if (L.op == DA_SUM) {
+        x = (long long)u;
+      } else if (L.op == DA_MIN) {
+        const u64 i = enc_min(init_of(L.kind, L.op));
+        x = dec_min(u > i ? u : i);
+      } else {
+        const u64 i = enc_max(init_of(L.kind, L.op));
+        x = dec_max(u > i ? u : i);
+      }
+      if (L.op != DA_SUM && L.kind == KIND_I32) {
+        ((int*)L.out)[c] = (int)x;
+      } else {
+        if (L.op != DA_SUM && L.kind == KIND_F64 && x < 0)
+          x ^= 0x7FFFFFFFFFFFFFFFLL;
+        ((long long*)L.out)[c] = x;
+      }
+    }
+    for (int64_t i = c; i < WI; i += W) p.acc[i] = 0;
   }
 }
 
@@ -266,8 +381,13 @@ dense_pass(const __grid_constant__ Params p) {
               __syncwarp();
               if (key[u] >= 0 && lane == __ffs(grp[u]) - 1) {
                 double a = fc[key[u]];
-                for (unsigned m = grp[u]; m; m &= m - 1)
-                  a = __fma_rn(p.one, sf[__ffs(m) - 1], a);
+                if (grp[u] == FULL) {
+#pragma unroll 8
+                  for (int i = 0; i < 32; ++i) a = __fma_rn(p.one, sf[i], a);
+                } else {
+                  for (unsigned m = grp[u]; m; m &= m - 1)
+                    a = __fma_rn(p.one, sf[__ffs(m) - 1], a);
+                }
                 fc[key[u]] = a;
               }
               __syncwarp();
@@ -321,7 +441,7 @@ dense_pass(const __grid_constant__ Params p) {
         __syncthreads();
       }
       for (int64_t i = threadIdx.x; i < WF; i += blockDim.x)
-        p.part[g * WF + i] = fcell[i];
+        p.nodes[g * WF + i] = fcell[i];
       __syncthreads();
     }
   }
@@ -338,95 +458,45 @@ dense_pass(const __grid_constant__ Params p) {
   }
 }
 
-// the carry tree over v[0, cnt), 0 < cnt <= DA_TREE
-__device__ __forceinline__ double tree(double* v, int cnt, double one) {
-#pragma unroll
-  for (int s = 1; s < DA_TREE; s <<= 1) {
-#pragma unroll
-    for (int k = 0; k < DA_TREE; k += 2 * s)
-      if (k + s < cnt) v[k] = __fma_rn(one, v[k + s], v[k]);
-  }
-  return v[0];
-}
-
-// nodes (G, WF) -> (ceil(G / DA_TREE), WF): DA_TREE aligned nodes into one
-__global__ void __launch_bounds__(256)
-dense_tree(const double* in, int64_t G, double* out, int64_t WF,
-           double one) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t G_out = (G + DA_TREE - 1) / DA_TREE;
-  if (i >= G_out * WF) return;
-  const int64_t o = i / WF, e = i % WF, lo = o * DA_TREE;
-  const int cnt = G - lo < DA_TREE ? (int)(G - lo) : DA_TREE;
-  double v[DA_TREE];
-#pragma unroll
-  for (int k = 0; k < DA_TREE; ++k)
-    v[k] = k < cnt ? in[(lo + k) * WF + e] : 0.0;
-  out[o * WF + e] = tree(v, cnt, one);
-}
-
-__device__ __forceinline__ long long init_of(int kind, int op) {
-  if (kind == KIND_I32) return op == DA_MIN ? INT32_MAX : INT32_MIN;
-  if (kind == KIND_I64) return op == DA_MIN ? INT64_MAX : INT64_MIN;
-  // +inf; -inf's order word
-  return op == DA_MIN ? 0x7FF0000000000000LL
-                      : (long long)0xFFF0000000000000ULL ^
-                            0x7FFFFFFFFFFFFFFFLL;
-}
-
-// one thread a cell: every output of the cell in its type; the f64 sums
-// from the G <= DA_TREE nodes left in `part`
-__global__ void __launch_bounds__(128)
-dense_finish(const __grid_constant__ Params p, const double* part,
-             int64_t G) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int W = p.W;
-  if (c >= W) return;
-  const u64 cnt = p.acc[c];
-  if (p.counts) p.counts[c] = (int64_t)cnt;
-  if (p.fidx) {
-    p.fidx_out[c] = dec_min(p.acc[W + c]);
-    const u64 l = p.acc[2 * W + c], none = enc_max(-1);
-    p.lidx_out[c] = dec_max(l > none ? l : none);
-  }
-  const int64_t WF = (int64_t)p.n_f * W;
-  for (int l = 0; l < p.n_lanes; ++l) {
-    const Lane& L = p.lane[l];
-    if (L.op == DA_FSUM) {
-      double v[DA_TREE];
-#pragma unroll
-      for (int k = 0; k < DA_TREE; ++k)
-        v[k] = k < G ? part[k * WF + (int64_t)L.slot * W + c] : 0.0;
-      const double s = G > 0 ? tree(v, (int)G, p.one) : -0.0;
-      ((double*)L.out)[c] = cnt ? s : 0.0;
-      continue;
+// the second launch: CTA b combines group nodes [DA_TREE b, DA_TREE (b +
+// 1)) by the tree into level 1's node b; the CTA that finishes last (a
+// ticket after __threadfence) combines the levels above, DA_TREE nodes
+// into one, up to the root, and writes every output (finish)
+__global__ void __launch_bounds__(DA_FINISH_THREADS)
+dense_finish(const __grid_constant__ Params p) {
+  __shared__ int last;
+  const int64_t WF = (int64_t)p.n_f * p.W;
+  for (int lvl = 0; lvl + 1 < p.levels; ++lvl) {
+    // level 0: this CTA's block; above it: every block, the last CTA
+    const int64_t b0 = lvl ? 0 : blockIdx.x;
+    const int64_t b1 = lvl ? p.level_n[lvl + 1] : b0 + 1;
+    for (int64_t i = threadIdx.x; i < (b1 - b0) * WF; i += blockDim.x) {
+      const int64_t b = b0 + i / WF, e = i % WF;
+      const int64_t left = p.level_n[lvl] - b * DA_TREE;
+      p.nodes[p.level_off[lvl + 1] + b * WF + e] = tree_of(
+          p.nodes + p.level_off[lvl] + b * DA_TREE * WF + e, WF,
+          left < DA_TREE ? (int)left : DA_TREE, p.one);
     }
-    const u64 u = p.acc[(int64_t)L.slot * W + c];
-    long long x;
-    if (L.op == DA_SUM) {
-      x = (long long)u;
-    } else if (L.op == DA_MIN) {
-      const u64 i = enc_min(init_of(L.kind, L.op));
-      x = dec_min(u > i ? u : i);
+    if (lvl == 0) {
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        __threadfence();   // the CTA's nodes, ordered by the barrier
+        last = atomicAdd(p.ticket, 1u) == gridDim.x - 1;
+        if (last) *p.ticket = 0;
+        __threadfence();
+      }
+      __syncthreads();
+      if (!last) return;
     } else {
-      const u64 i = enc_max(init_of(L.kind, L.op));
-      x = dec_max(u > i ? u : i);
-    }
-    if (L.op != DA_SUM && L.kind == KIND_I32) {
-      ((int*)L.out)[c] = (int)x;
-    } else {
-      if (L.op != DA_SUM && L.kind == KIND_F64 && x < 0)
-        x ^= 0x7FFFFFFFFFFFFFFFLL;
-      ((long long*)L.out)[c] = x;
+      __syncthreads();
     }
   }
+  finish(p);   // one CTA when there is one level
 }
 
 }  // namespace dense_agg
 
 using namespace dense_agg;
-
-static int64_t a256(int64_t x) { return (x + 255) / 256 * 256; }
 
 // the shared memory of a dense_pass CTA of P warps: the integer cells of
 // each warp (private) or of the CTA, and each warp's f64 cells and stage
@@ -453,29 +523,32 @@ static int warps_of(int W, int n_acc, int n_f, bool priv) {
 
 struct Layout {
   bool priv;
-  int P;
-  int64_t groups, acc, part_a, part_b, total;
+  int P, levels;
+  int64_t groups;
+  int64_t level_n[DA_LEVELS], level_off[DA_LEVELS];
+  int64_t total;   // scratch bytes
 };
 
-static Layout layout(int64_t n, int W, int n_acc, int n_f) {
-  Layout L;
-  L.priv = private_cells(W, n_acc, n_f);
-  L.P = warps_of(W, n_acc, n_f, L.priv);
+// the CTA's warps, the groups of n rows and the levels of group nodes
+// above them (DA_TREE a node; none without f64 sums); false if the cells
+// do not fit a CTA or the call needs more levels than DA_LEVELS
+static bool layout(int64_t n, int W, int n_acc, int n_f, Layout* L) {
+  L->priv = private_cells(W, n_acc, n_f);
+  L->P = warps_of(W, n_acc, n_f, L->priv);
+  if (!L->P) return false;
   const int64_t chunks = (n + DA_CHUNK - 1) / DA_CHUNK;
-  L.groups = L.P ? (chunks + L.P - 1) / L.P : 0;
+  L->groups = (chunks + L->P - 1) / L->P;
   const int64_t WF = (int64_t)n_f * W;
-  L.acc = a256(8 * (int64_t)n_acc * W);
-  L.part_a = n_f ? a256(8 * L.groups * WF) : 0;
-  L.part_b = n_f ? a256(8 * ((L.groups + DA_TREE - 1) / DA_TREE) * WF) : 0;
-  L.total = L.acc + L.part_a + L.part_b;
-  return L;
-}
-
-// dense_tree launches for `groups` nodes
-static int tree_passes(int64_t groups) {
-  int k = 0;
-  for (; groups > DA_TREE; groups = (groups + DA_TREE - 1) / DA_TREE) ++k;
-  return k;
+  int64_t g = n_f && L->groups > 0 ? L->groups : 1, off = 0;
+  for (L->levels = 0;; g = (g + DA_TREE - 1) / DA_TREE) {
+    if (L->levels == DA_LEVELS) return false;
+    L->level_n[L->levels] = g;
+    L->level_off[L->levels++] = off;
+    off += g * WF;
+    if (g == 1) break;
+  }
+  L->total = DA_ZERO_BYTES + 8 * off;
+  return true;
 }
 
 // rows of a chunk, which the plain version's _DENSE_CHUNK must equal
@@ -484,41 +557,89 @@ extern "C" int rf_dense_agg_chunk(void) { return DA_CHUNK; }
 // bytes of scratch rf_dense_agg needs for n rows over `cells` cells with
 // n_acc integer words a cell (counts, fidx and lidx if asked, and every
 // DA_SUM, DA_MIN and DA_MAX lane) and n_f DA_FSUM lanes; -1 if one CTA's
-// cells do not fit in shared memory
+// cells do not fit in shared memory. Its first DA_ZERO_BYTES must be zero.
 extern "C" int64_t rf_dense_agg_scratch_bytes(int64_t n, int cells,
                                               int n_acc, int n_f) {
-  Layout L = layout(n, cells, n_acc, n_f);
-  return L.P ? L.total : -1;
+  Layout L;
+  if (n < 0 || cells < 1 || !layout(n, cells, n_acc, n_f, &L)) return -1;
+  return L.total;
 }
 
-// kernel launches of one rf_dense_agg call (after its one memset)
+// kernel launches of one rf_dense_agg call: the pass (for n > 0) and the
+// finish
 extern "C" int rf_dense_agg_launches(int64_t n, int cells, int n_acc,
                                      int n_f) {
-  Layout L = layout(n, cells, n_acc, n_f);
-  return (n > 0 ? 1 : 0) + (n_f ? tree_passes(L.groups) : 0) + 1;
+  return (n > 0 ? 1 : 0) + 1;
+}
+
+// the CTAs an SM holds of one dense_pass instance at `smem` bytes and
+// `threads`, asked once per (instance, device, bytes, threads); the SMs
+// of the device and the instance's shared-memory attribute (DA_SMEM),
+// once per instance and device
+struct Occ {
+  const void* fn;
+  int dev, threads;
+  int64_t smem;
+  int occ;
+};
+static std::mutex occ_mu;
+static Occ occ_cache[128];
+static int occ_used = 0;
+static int sms_of[64];
+static bool attr_set[64][4];
+
+template <typename C, bool PRIV>
+static int occupancy(int64_t smem, int threads, int* occ, int* sms) {
+  const void* fn = (const void*)dense_pass<C, PRIV>;
+  const int ti = (sizeof(C) == 8) * 2 + PRIV;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> g(occ_mu);
+  if (!attr_set[dev][ti]) {
+    e = cudaFuncSetAttribute(dense_pass<C, PRIV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             DA_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaDeviceGetAttribute(&sms_of[dev],
+                               cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    attr_set[dev][ti] = true;
+  }
+  *sms = sms_of[dev];
+  for (int i = 0; i < occ_used; ++i)
+    if (occ_cache[i].fn == fn && occ_cache[i].dev == dev &&
+        occ_cache[i].smem == smem && occ_cache[i].threads == threads) {
+      *occ = occ_cache[i].occ;
+      return 0;
+    }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      occ, dense_pass<C, PRIV>, threads, (size_t)smem);
+  if (e != cudaSuccess) return (int)e;
+  const Occ o = {fn, dev, threads, smem, *occ};
+  occ_cache[occ_used < 128 ? occ_used++ : (int)(smem % 128)] = o;
+  return 0;
 }
 
 template <typename C, bool PRIV>
-static int launch_pass(const Params& p, int64_t groups, cudaStream_t s) {
-  const int64_t smem = smem_of(p.W, p.n_acc, p.n_f, p.warps, PRIV);
-  cudaError_t e = cudaFuncSetAttribute(
-      dense_pass<C, PRIV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, occ = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                  dev)) != cudaSuccess)
-    return (int)e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &occ, dense_pass<C, PRIV>, 32 * p.warps, (size_t)smem)) !=
-      cudaSuccess)
-    return (int)e;
-  if (occ <= 0) return (int)cudaErrorInvalidConfiguration;
-  const int64_t most =
-      (int64_t)sms * (occ < DA_CTAS_PER_SM ? occ : DA_CTAS_PER_SM);
-  const int64_t ctas = groups < most ? groups : most;
-  dense_pass<C, PRIV><<<(unsigned)ctas, 32 * p.warps, (size_t)smem, s>>>(p);
+static int launch(const Params& p, int64_t groups, cudaStream_t s) {
+  if (groups > 0) {
+    const int64_t smem = smem_of(p.W, p.n_acc, p.n_f, p.warps, PRIV);
+    int occ = 0, sms = 0;
+    const int rc = occupancy<C, PRIV>(smem, 32 * p.warps, &occ, &sms);
+    if (rc) return rc;
+    if (occ <= 0) return (int)cudaErrorInvalidConfiguration;
+    const int64_t most =
+        (int64_t)sms * (occ < DA_CTAS_PER_SM ? occ : DA_CTAS_PER_SM);
+    const int64_t ctas = groups < most ? groups : most;
+    dense_pass<C, PRIV><<<(unsigned)ctas, 32 * p.warps, (size_t)smem, s>>>(
+        p);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int64_t blocks = p.levels > 1 ? p.level_n[1] : 1;
+  dense_finish<<<(unsigned)blocks, DA_FINISH_THREADS, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -528,8 +649,10 @@ static int launch_pass(const Params& p, int64_t groups, cudaStream_t s) {
 // (0 sum of i32 / i64 into i64, 1 min, 2 max, 3 f64 sum), written to
 // outs[i] as (cells,) of i64 (op 0), f64 (op 3) or the values' type. counts,
 // fidx and lidx: (cells,) i64 outputs, each null when not wanted (fidx and
-// lidx together). Returns 0 or the cudaError of a launch;
-// cudaErrorInvalidValue for arguments it does not take.
+// lidx together). scratch: rf_dense_agg_scratch_bytes, its first
+// DA_ZERO_BYTES zero (and zero again after the call). The launches of
+// rf_dense_agg_launches, no memset. Returns 0 or the cudaError of a
+// launch; cudaErrorInvalidValue for arguments it does not take.
 extern "C" int rf_dense_agg(const void* codes, int code_kind,
                             int64_t code_stride, int64_t n, int cells,
                             int n_lanes, const void* const* ins,
@@ -577,39 +700,22 @@ extern "C" int rf_dense_agg(const void* codes, int code_kind,
   }
   p.n_acc = n_acc;
   p.n_f = n_f;
-  Layout lay = layout(n, cells, n_acc, n_f);
-  if (!lay.P) return (int)cudaErrorInvalidValue;
+  Layout lay;
+  if (!layout(n, cells, n_acc, n_f, &lay))
+    return (int)cudaErrorInvalidValue;
   p.warps = lay.P;
+  p.levels = lay.levels;
+  for (int l = 0; l < lay.levels; ++l) {
+    p.level_n[l] = lay.level_n[l];
+    p.level_off[l] = lay.level_off[l];
+  }
   char* base = (char*)scratch;
   p.acc = (u64*)base;
-  double* part_a = (double*)(base + lay.acc);
-  double* part_b = (double*)(base + lay.acc + lay.part_a);
-  p.part = part_a;
-
-  cudaError_t e = cudaMemsetAsync(p.acc, 0, 8 * (size_t)n_acc * cells, s);
-  if (e != cudaSuccess) return (int)e;
-  if (n > 0) {
-    const int rc =
-        code_kind == KIND_I32
-            ? (lay.priv ? launch_pass<int32_t, true>(p, lay.groups, s)
-                        : launch_pass<int32_t, false>(p, lay.groups, s))
-            : (lay.priv ? launch_pass<long long, true>(p, lay.groups, s)
-                        : launch_pass<long long, false>(p, lay.groups, s));
-    if (rc) return rc;
-  }
-  const double* src = part_a;
-  int64_t G = n_f ? lay.groups : 0;
-  const int64_t WF = (int64_t)n_f * cells;
-  double* bufs[2] = {part_b, part_a};
-  for (int k = 0; G > DA_TREE; ++k) {
-    const int64_t G_out = (G + DA_TREE - 1) / DA_TREE;
-    const int64_t threads = G_out * WF;
-    dense_tree<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
-        src, G, bufs[k & 1], WF, 1.0);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    src = bufs[k & 1];
-    G = G_out;
-  }
-  dense_finish<<<(unsigned)((cells + 127) / 128), 128, 0, s>>>(p, src, G);
-  return (int)cudaGetLastError();
+  p.ticket = (unsigned*)(base + DA_SMEM);
+  p.nodes = (double*)(base + DA_ZERO_BYTES);
+  if (code_kind == KIND_I32)
+    return lay.priv ? launch<int32_t, true>(p, lay.groups, s)
+                    : launch<int32_t, false>(p, lay.groups, s);
+  return lay.priv ? launch<long long, true>(p, lay.groups, s)
+                  : launch<long long, false>(p, lay.groups, s);
 }

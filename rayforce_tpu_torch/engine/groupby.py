@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
+import threading
 
 import numpy as np
 import torch
@@ -239,18 +241,46 @@ DENSE_ARGTYPES = {
     "rf_dense_agg": (_I32, [_P, _I32, _I64, _I64, _I32, _I32, _P, _P, _P,
                             _P, _P, _P, _P, _P, _P, _P]),
 }
-# the lanes' ops by the source's DA_* number, and the shared memory one
-# dense_pass CTA may take (DA_SMEM) for the cells of a call's lanes (at
-# most DENSE_MAX_LANES): mirrors the tests hold against the source
+# the lanes' ops by the source's DA_* number; the most lanes of a call
+# (DA_MAX_LANES); the shared memory one dense_pass CTA may take (DA_SMEM);
+# the zeroed head of the scratch (DA_ZERO_BYTES): mirrors the tests hold
+# against the source
 _DA_OPS = {"int": 0, "min": 1, "max": 2, "fsum": 3}
 DENSE_MAX_LANES = 24
 DENSE_SMEM = 232448
+DENSE_ZERO_BYTES = 232704
 
 
 def dense_fits(n_cells, n_acc, n_f):
     """Whether the cells of n_acc integer words and n_f f64 sums a cell
     fit one dense_pass CTA of one warp (the source's smem_of at P=1)."""
     return 8 * (n_acc * n_cells + n_f * n_cells + 32) <= DENSE_SMEM
+
+
+def dense_load_route(x, codes=False):
+    """How dense_pass reads x: "contiguous" (stride 1: a warp's 32 rows
+    in one coalesced load), "constant" (codes of stride 0: every row on
+    one code), else "strided"."""
+    if codes and x.stride(0) == 0:
+        return "constant"
+    return "contiguous" if x.stride(0) == 1 else "strided"
+
+
+# (device, stream) -> the scratch of the dense kernel on that stream, its
+# first DENSE_ZERO_BYTES zero between calls (the kernel zeroes what it
+# used); calls on one stream run one after another on the card
+_dense_work: dict = {}
+_DENSE_WORK_LOCK = threading.Lock()
+
+
+def _dense_scratch(device, stream, nbytes):
+    key = (device, stream)
+    with _DENSE_WORK_LOCK:
+        buf = _dense_work.get(key)
+        if buf is None or buf.numel() * 8 < nbytes:
+            buf = torch.zeros(-(-nbytes // 8), dtype=I64, device=device)
+            _dense_work[key] = buf
+    return buf
 
 
 _dlib = None
@@ -276,17 +306,18 @@ def _dense_lib():
     return _dlib
 
 
-def _dense_batches(n_cells, lanes, want_fidx):
-    """The lanes [(name, tensor, op)] cut into calls whose cells fit one
-    CTA: the first call also takes fidx and lidx; every call counts."""
+@functools.lru_cache(maxsize=256)
+def _dense_plan(n_cells, fsum, want_fidx):
+    """((lane indices, n_acc, n_f), ...) of the library calls for lanes
+    whose f64-sum flags are `fsum`: each call's cells fit one CTA; the
+    first call also takes fidx and lidx; every call counts."""
     batches, cur, n_acc, n_f = [], [], 3 if want_fidx else 1, 0
-    for lane in lanes:
-        f = lane[2] == "fsum"
+    for i, f in enumerate(fsum):
         if cur and (len(cur) == DENSE_MAX_LANES or
                     not dense_fits(n_cells, n_acc + (not f), n_f + f)):
-            batches.append(cur)
+            batches.append((tuple(cur), n_acc, n_f))
             cur, n_acc, n_f = [], 1, 0
-        cur.append(lane)
+        cur.append(i)
         n_acc, n_f = n_acc + (not f), n_f + f
         if not dense_fits(n_cells, n_acc, n_f):
             raise ValueError(f"dense_agg: {n_cells} cells do not fit one "
@@ -294,7 +325,15 @@ def _dense_batches(n_cells, lanes, want_fidx):
     if not dense_fits(n_cells, n_acc, n_f):
         raise ValueError(f"dense_agg: {n_cells} cells do not fit one CTA's "
                          "shared memory")
-    return batches + [cur]
+    return tuple(batches) + ((tuple(cur), n_acc, n_f),)
+
+
+def _dense_batches(n_cells, lanes, want_fidx):
+    """The lanes [(name, tensor, op)] cut into calls whose cells fit one
+    CTA (`_dense_plan`)."""
+    plan = _dense_plan(n_cells, tuple(op == "fsum" for _n, _x, op in lanes),
+                       want_fidx)
+    return [[lanes[i] for i in idx] for idx, _a, _f in plan]
 
 
 def dense_agg_cuda(codes, n_cells, n_rows, ints=(), fsums=(), mins=(),
@@ -302,10 +341,11 @@ def dense_agg_cuda(codes, n_cells, n_rows, ints=(), fsums=(), mins=(),
     """The CUDA dense aggregate (csrc/dense_agg.cu) of CUDA tensors: bit
     for bit `dense_agg_plain` on the same card, the same lanes. Codes
     (i32 or i64) and every lane are read in place at their strides (a
-    stride-0 view too). One call of the library is a memset and 2-4
-    kernel launches; lanes whose cells do not fit one CTA together go
-    in more than one call. Any failure to build, load, allocate or
-    launch raises DeviceError."""
+    stride-0 view too). One call of the library is two kernel launches
+    and no memset, its scratch the stream's (`_dense_scratch`); lanes
+    whose cells do not fit one CTA together go in more than one call.
+    Any failure to build, load, allocate or launch, and a shape the
+    kernel does not take, raises DeviceError."""
     lanes = [(f"int{j}", x, "int") for j, x in enumerate(ints)] + \
         [(f"fsum{j}", x, "fsum") for j, x in enumerate(fsums)] + \
         [(f"min{j}", x, "min") for j, x in enumerate(mins)] + \
@@ -322,28 +362,33 @@ def dense_agg_cuda(codes, n_cells, n_rows, ints=(), fsums=(), mins=(),
             f"{tuple(codes.shape)} on {dv} over {n_cells} cells, lanes " +
             ", ".join(f"{op} {x.dtype} {tuple(x.shape)} on {x.device}"
                       for _nm, x, op in lanes))
-    batches = _dense_batches(n_cells, lanes, want_fidx)
+    plan = _dense_plan(n_cells, tuple(op == "fsum" for _n, _x, op in lanes),
+                       want_fidx)
     lib = _dense_lib()
     W = n_cells
-
-    def new(dtype):
-        return torch.empty(W, dtype=dtype, device=dv)
-    out = {nm: new(I64 if op == "int" else x.dtype) for nm, x, op in lanes}
-    if want_counts:
-        out["counts"] = new(I64)
-    if want_fidx:
-        out["fidx"], out["lidx"] = new(I64), new(I64)
+    # every output a row of one buffer: one allocation a call
+    names = [nm for nm, _x, _op in lanes] + \
+        (["counts"] if want_counts else []) + \
+        (["fidx", "lidx"] if want_fidx else [])
+    buf = torch.empty((len(names), W), dtype=I64, device=dv)
+    out = {nm: buf[i] for i, nm in enumerate(names)}
+    for nm, x, op in lanes:
+        if op != "int" and x.dtype != I64:
+            out[nm] = out[nm].view(x.dtype)[:W]
     try:
         with _card_stream(dv) as stream:
-            for bi, batch in enumerate(batches):
-                k = max(len(batch), 1)
+            for bi, (idx, n_acc, n_f) in enumerate(plan):
+                k = max(len(idx), 1)
                 fid = want_fidx and bi == 0
-                n_acc = (3 if fid else 1) + \
-                    sum(op != "fsum" for _nm, _x, op in batch)
-                n_f = sum(op == "fsum" for _nm, _x, op in batch)
                 nbytes = lib.rf_dense_agg_scratch_bytes(n_rows, W, n_acc,
                                                         n_f)
-                scratch = torch.empty(-(-nbytes // 8), dtype=I64, device=dv)
+                if nbytes < 0:
+                    raise DeviceError(f"dense_agg: {n_rows} rows over {W} "
+                                      f"cells, {n_acc} words and {n_f} f64 "
+                                      "sums a cell: not a shape the kernel "
+                                      "takes")
+                scratch = _dense_scratch(dv, stream, nbytes)
+                batch = [lanes[i] for i in idx]
                 rc = lib.rf_dense_agg(
                     codes.data_ptr(), _KINDS[codes.dtype], codes.stride(0),
                     n_rows, W, len(batch),
@@ -364,6 +409,8 @@ def dense_agg_cuda(codes, n_cells, n_rows, ints=(), fsums=(), mins=(),
                     scratch.data_ptr(), stream)
                 if rc != 0:
                     break
+    except DeviceError:
+        raise
     except Exception as e:
         raise DeviceError(f"dense_agg: {type(e).__name__}: {e}") from e
     if rc != 0:
@@ -608,6 +655,9 @@ def _seg_lib():
 @contextlib.contextmanager
 def _card_stream(device):
     """`device` made current; yields its current stream's handle."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        yield torch.cuda.current_stream(device).cuda_stream
+        return
     with torch.cuda.device(device):
         yield torch.cuda.current_stream(device).cuda_stream
 

@@ -187,10 +187,11 @@ _COUNT_LOCK = threading.Lock()
 @contextlib.contextmanager
 def count_dense(shapes, calls=None):
     """Count, in `shapes`, each call of the dense aggregate by "rows x
-    cells: lanes" (the ops of its lanes: int, fsum, min, max), with
-    " plain" added for a call of the plain version; parted selects call
-    from worker threads. `calls`, a list, also gets (key, args, kwargs)
-    of every kernel call."""
+    cells: lanes (routes)" (the ops of its lanes: int, fsum, min, max;
+    how the kernel reads the codes and the lanes, groupby
+    `dense_load_route`), with " plain" added for a call of the plain
+    version; parted selects call from worker threads. `calls`, a list,
+    also gets (key, args, kwargs) of every kernel call."""
     from ..engine import groupby as G
     real = G.dense_agg_cuda, G.dense_agg_plain
 
@@ -200,7 +201,12 @@ def count_dense(shapes, calls=None):
             lanes = " ".join(f"{op}{len(x)}" for op, x in (
                 ("int", ints), ("fsum", fsums), ("min", mins),
                 ("max", maxs)) if x)
-            key = f"{n_rows}x{n_cells}: {lanes or '-'}{tag}"
+            routes = "codes " + G.dense_load_route(codes, True)
+            vals = list(ints) + list(fsums) + list(mins) + list(maxs)
+            if vals:
+                routes += ", lanes " + "+".join(sorted(
+                    {G.dense_load_route(x) for x in vals}))
+            key = f"{n_rows}x{n_cells}: {lanes or '-'} ({routes}){tag}"
             with _COUNT_LOCK:
                 shapes[key] = shapes.get(key, 0) + 1
                 if calls is not None and not tag:

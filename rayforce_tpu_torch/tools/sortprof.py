@@ -37,8 +37,8 @@ With --dense the dense aggregate (engine/csrc/dense_agg.cu) is profiled
 too, on the inputs the dense plan's queries give it (tools.g1.QUERIES
 q1, q4, med, no_by and small_where on a --rows-row G1 table) and the
 flagship step's (entry.py): for each the lanes, the device time of
-every launch of one call (the memset of the global cells, the pass, the
-tree passes, the finish) and the plain version's device time.
+every launch of one call (one dense_pass a library call) and the plain
+version's device time.
 
 Prints, per profiled region, the device time by kernel name (the top 14
 and every seg_scan and dense_agg kernel) and the region's wall time,

@@ -9,18 +9,25 @@
   1 to 512 codes and row counts either side of the 1024-row chunk;
 - the fixed f64 order, bit for bit against a numpy fold-and-tree: each
   cell's left fold from -0.0 in row order inside a chunk, then a
-  pairwise tree over the chunks (a cell of -0.0 rows stays -0.0); and a
-  numpy model of the CUDA kernel's way through that tree (the first
-  log2(P) levels inside a CTA of P warps, DA_TREE nodes a thread after
-  that) against the same tree, for every P;
+  pairwise tree over the chunks (a cell of -0.0 rows stays -0.0); a
+  numpy model of the CUDA kernel's grouping (32 rows at a time, the rows
+  of each code one group, each group folded by its first lane in lane
+  order) against `_fixed_order_sums`, and a model of its way through the
+  tree (the first log2(P) levels inside a CTA of P warps, then aligned
+  blocks of DA_TREE nodes combined as a binary counter, level after
+  level) against the same tree, for every P, CTA count and order in
+  which the CTAs finish their groups;
 - the dispatch: a CPU tensor runs the plain version and never loads the
   library, another device raises DeviceError; one dense pass a query
   and a flagship step, tasks included;
 - the wrapper against a stand-in library: codes and lanes read in place
-  at their strides (stride-0 codes too), outputs and scratch, lanes cut
-  into calls whose cells fit one CTA, DeviceError on a failed launch and
-  on a library without a symbol, ValueError on what the kernel does not
-  take; the ctypes table and the constants against csrc/dense_agg.cu.
+  at their strides (stride-0 codes too), outputs and the stream's
+  scratch (its head zero, kept per device and stream), lanes cut into
+  calls whose cells fit one CTA, DeviceError on a failed launch, on a
+  shape the library does not take and on a library without a symbol,
+  ValueError on what the kernel does not take; the load routes; the
+  ctypes table, the constants and the shared-memory rule against
+  csrc/dense_agg.cu.
 
 The CUDA kernel itself is held bit for bit against the plain version on
 the card by chip_smoke.py."""
@@ -208,53 +215,183 @@ def test_fixed_f64_order_is_fold_then_tree(n_rows):
     assert got.view(np.int64)[7] == 0
 
 
-def _kernel_tree(part, P, T):
-    """The CUDA kernel's way through the tree over the (K, W) chunk
-    partials: dense_pass's CTA of P warps combines P aligned chunks by
-    the tree's first log2(P) levels (a pair only where its right node
-    holds a chunk below K), dense_tree combines DA_TREE aligned nodes
-    until at most DA_TREE are left, dense_finish those."""
+def _counter_node(parts):
+    """A warp's binary counter over a group's chunk partials (in chunk
+    order): chunk j merges the blocks its trailing one bits name, and at
+    the group's end the blocks of its size's bits combine, the lowest
+    first, each as the left operand of what is above it."""
+    blk = {}
+    for j, x in enumerate(parts):
+        lv = 0
+        while (j >> lv) & 1:
+            x = blk[lv] + x
+            lv += 1
+        blk[lv] = x
+    m, node = len(parts), None
+    for lv in range(m.bit_length()):
+        if (m >> lv) & 1:
+            node = blk[lv] if node is None else blk[lv] + node
+    return node
+
+
+def _group_node(part, g, P):
+    """dense_pass's tree inside a CTA of P warps: the group's P aligned
+    chunks by the tree's first log2(P) levels (a pair only where its
+    right node holds a chunk below K)."""
     K = part.shape[0]
+    f = [part[g * P + w] if g * P + w < K else None for w in range(P)]
+    s = 1
+    while s < P:
+        for j in range(0, P, 2 * s):
+            if g * P + j + s < K:
+                f[j] = f[j] + f[j + s]
+        s *= 2
+    return f[0]
 
-    def tree(vals):
-        v, cnt, s = list(vals) + [None] * (T - len(vals)), len(vals), 1
-        while s < T:
-            for k in range(0, T, 2 * s):
-                if k + s < cnt:
-                    v[k] = v[k] + v[k + s]
-            s *= 2
-        return v[0]
 
-    nodes = []
-    for g in range(-(-K // P)):
-        f = [part[g * P + w] if g * P + w < K else None for w in range(P)]
-        s = 1
-        while s < P:
-            for j in range(0, P, 2 * s):
-                if g * P + j + s < K:
-                    f[j] = f[j] + f[j + s]
-            s *= 2
-        nodes.append(f[0])
-    while len(nodes) > T:
-        nodes = [tree(nodes[o * T:(o + 1) * T])
-                 for o in range(-(-len(nodes) // T))]
-    return tree(nodes)
+def _kernel_tree(part, P, T, ctas, rng):
+    """The CUDA kernel's way through the tree over the (K, W) chunk
+    partials: dense_pass's group g (P aligned chunks) inside its CTA
+    (`_group_node`); the groups spread over `ctas` CTAs (g, g + ctas,
+    ...), which finish them in a random interleaving; dense_finish
+    combines each aligned block of T nodes (`tree_of`, a binary
+    counter) once the block is whole, level after level."""
+    K = part.shape[0]
+    G = -(-K // P)
+    level_n = [G]
+    while level_n[-1] > 1:
+        level_n.append(-(-level_n[-1] // T))
+    nodes = [dict() for _ in level_n]
+    done = [dict() for _ in level_n]
+    queues = [list(range(w, G, ctas)) for w in range(ctas)]
+    while any(queues):
+        w = rng.choice([i for i, q in enumerate(queues) if q])
+        g = queues[w].pop(0)
+        nodes[0][g] = _group_node(part, g, P)
+        idx = g
+        for lvl in range(len(level_n) - 1):
+            blk = idx // T
+            cnt = min(T, level_n[lvl] - blk * T)
+            done[lvl + 1][blk] = done[lvl + 1].get(blk, 0) + 1
+            if done[lvl + 1][blk] != cnt:
+                break
+            nodes[lvl + 1][blk] = _counter_node(
+                [nodes[lvl][blk * T + k] for k in range(cnt)])
+            idx = blk
+    return nodes[-1][0]
 
 
 @pytest.mark.parametrize("K", [1, 2, 3, 7, 8, 9, 33, 100, 257, 1025, 1100,
                                33 * 32 + 5])
 def test_kernel_tree_is_the_plain_tree(K):
     """For every CTA width the kernel may take (it narrows P to fit its
-    shared memory), its split of the tree gives the plain tree's bits."""
+    shared memory), every CTA count and every order in which the CTAs
+    finish, its split of the tree gives the plain tree's bits."""
     P_max, T = _define("DA_WARPS"), _define("DA_TREE")
     rng = np.random.default_rng(K)
     part = _wide_values(rng, K * 5).reshape(K, 5)
     want = _level_tree(list(part)).view(np.int64)
     P = P_max
     while P >= 1:
-        got = _kernel_tree(part, P, T).view(np.int64)
-        assert np.array_equal(got, want), P
+        for ctas in (1, 3, 8, 1056):
+            got = _kernel_tree(part, P, T, ctas, rng).view(np.int64)
+            assert np.array_equal(got, want), (P, ctas)
         P //= 2
+
+
+def _peers(keys, bits):
+    """__match_any_sync of 32 keys: lane l's mask of the lanes with its
+    key (built here from one ballot a key bit)."""
+    lanes = np.arange(32, dtype=np.uint64)
+    peers = np.full(32, 0xFFFFFFFF, dtype=np.uint64)
+    for b in range(bits):
+        on = ((keys >> b) & 1).astype(bool)
+        ballot = np.uint64(int((on.astype(np.uint64) << lanes).sum()))
+        peers &= np.where(on, ballot, ~ballot & np.uint64(0xFFFFFFFF))
+    return peers
+
+
+def _kernel_chunk_sums(codes, vals, W):
+    """(W, F) f64 sums as the CUDA kernel adds them: per chunk, 32 rows
+    at a time (rows past the end carry key W): 32 rows of one code fold
+    in row order; otherwise each group of the match is folded by its
+    first lane over its members in lane order, into the cell's chunk
+    partial (from -0.0); then the kernel's tree."""
+    n, F = len(codes), len(vals)
+    bits = int(W).bit_length()
+    K = max(-(-n // C), 1)
+    part = np.full((K, W, F), -0.0)
+    with np.errstate(invalid="ignore"):
+        _fold_groups(codes, vals, W, bits, part)
+    return _kernel_tree(part.reshape(K, W * F), _define("DA_WARPS"),
+                        _define("DA_TREE"), 7,
+                        np.random.default_rng(n)).reshape(W, F)
+
+
+def _fold_groups(codes, vals, W, bits, part):
+    n, F = len(codes), len(vals)
+    for r0 in range(0, n, 32):
+        k = np.full(32, W, dtype=np.int64)
+        k[:min(32, n - r0)] = codes[r0:r0 + 32]
+        k[(k < 0) | (k >= W)] = W
+        chunk = r0 // C
+        if (k == k[0]).all():
+            if k[0] < W:
+                for i in range(32):
+                    for f in range(F):
+                        part[chunk, k[0], f] = part[chunk, k[0], f] + \
+                            vals[f][r0 + i]
+            continue
+        peers = _peers(k, bits)
+        for lane in range(32):
+            m = int(peers[lane])
+            if k[lane] == W or lane != (m & -m).bit_length() - 1:
+                continue
+            for member in range(32):
+                if (m >> member) & 1:
+                    for f in range(F):
+                        part[chunk, k[lane], f] = part[chunk, k[lane], f] + \
+                            vals[f][r0 + member]
+
+
+@pytest.mark.parametrize("n_codes", [1, 7, 100, 512])
+@pytest.mark.parametrize("n_rows", [1, 31, C - 1, C, C + 1, 3 * C + 7])
+def test_kernel_grouping_is_the_fixed_order(n_rows, n_codes):
+    """The kernel's grouping, modelled in numpy, adds every cell's rows
+    in `_fixed_order_sums`' order: bit for bit, with a -0.0 cell, a cell
+    of inf and -inf (inf - inf) and codes outside the cells."""
+    rng = np.random.default_rng(n_rows * 7 + n_codes)
+    W = n_codes + 1
+    codes = rng.integers(0, W, n_rows).astype(np.int64)
+    codes[::97] = W + 3                      # skipped
+    v = _wide_values(rng, n_rows)
+    v[codes == 0] = -0.0
+    if n_codes > 1:
+        v[(codes == 1) & (rng.random(n_rows) < 0.3)] = np.inf
+        v[(codes == 1) & (rng.random(n_rows) < 0.3)] = -np.inf
+    w = rng.uniform(-1, 1, n_rows)
+    got = _kernel_chunk_sums(codes, [v, w], W)
+    want = G._fixed_order_sums(torch.from_numpy(np.where(codes < W, codes, W)),
+                               [torch.from_numpy(v), torch.from_numpy(w)],
+                               W + 1)[:W].numpy()
+    # _fixed_order_sums has no skipped rows: they went to its extra cell
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))
+
+
+@pytest.mark.parametrize("n_rows", [1, 31, C - 1, C, C + 1, 3 * C + 7])
+def test_kernel_grouping_of_skewed_codes(n_rows):
+    """90% of the rows on one code (a filter's trash code): long runs of
+    32 rows of one code, and groups of many members, in the fixed
+    order."""
+    rng = np.random.default_rng(n_rows)
+    W = 101
+    codes = np.where(rng.random(n_rows) < 0.9, 100,
+                     rng.integers(0, 100, n_rows)).astype(np.int64)
+    v = _wide_values(rng, n_rows)
+    got = _kernel_chunk_sums(codes, [v], W)
+    want = G._fixed_order_sums(torch.from_numpy(codes), [torch.from_numpy(v)],
+                               W).numpy()
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))
 
 
 def test_the_order_decides_the_bits():
@@ -410,14 +547,7 @@ def fake(monkeypatch):
                                                    (True, False)])
 def test_wrapper_passes_lanes_outputs_and_scratch(fake, monkeypatch,
                                                   want_counts, want_fidx):
-    allocated = []
-    real_empty = torch.empty
-
-    def empty(*a, **k):
-        t = real_empty(*a, **k)
-        allocated.append(t)
-        return t
-    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(G, "_dense_work", {})
     n, W = 3000, 101
     codes = torch.tensor([7], dtype=torch.int32).expand(n)    # stride 0
     i32 = torch.zeros(2 * n, dtype=torch.int32)[::2]
@@ -447,8 +577,49 @@ def test_wrapper_passes_lanes_outputs_and_scratch(fake, monkeypatch,
     assert ("counts" in out) == want_counts
     assert fidx == (out["fidx"].data_ptr() if want_fidx else None)
     assert lidx == (out["lidx"].data_ptr() if want_fidx else None)
-    buf = next(t for t in allocated if t.data_ptr() == scratch)
+    # the stream's scratch: one buffer of the library's bytes, zero
+    (key, buf), = G._dense_work.items()
+    assert key == (codes.device, 1234) and buf.data_ptr() == scratch
     assert buf.numel() * buf.element_size() >= 4096 + 1
+    assert not buf.any()
+
+
+def test_scratch_is_kept_per_stream(monkeypatch):
+    """One scratch a (device, stream), zero when it is made, grown when a
+    call needs more; the kernel leaves its head zero, so calls reuse it
+    without a memset."""
+    monkeypatch.setattr(G, "_dense_work", {})
+    a = G._dense_scratch(torch.device("cpu"), 1, 100)
+    assert G._dense_scratch(torch.device("cpu"), 1, 64) is a
+    assert a.numel() * 8 >= 100 and not a.any()
+    b = G._dense_scratch(torch.device("cpu"), 2, 100)
+    assert b is not a
+    c = G._dense_scratch(torch.device("cpu"), 1, 1000)
+    assert c is not a and c.numel() * 8 >= 1000 and not c.any()
+    assert G._dense_work == {(torch.device("cpu"), 1): c,
+                             (torch.device("cpu"), 2): b}
+
+
+def test_wrapper_raises_where_the_kernel_cannot_take_the_shape(fake):
+    """A shape the library does not take (its scratch bytes -1) raises
+    DeviceError before any launch: no fallback."""
+    fake.rf_dense_agg_scratch_bytes = lambda *a: -1
+    before = psort.LAUNCHES["dense_agg"]
+    with pytest.raises(DeviceError, match="not a shape the kernel takes"):
+        G.dense_agg_cuda(torch.zeros(10, dtype=torch.int32), 3, 10)
+    assert not [c for c in fake.calls if c[0] == "agg"]
+    assert psort.LAUNCHES["dense_agg"] == before
+
+
+def test_load_routes():
+    """How the kernel reads each array: stride-0 codes as one code,
+    stride 1 in coalesced loads, anything else strided."""
+    x = torch.zeros(64, dtype=torch.int32)
+    assert G.dense_load_route(x, True) == "contiguous"
+    assert G.dense_load_route(x[:1].expand(64), True) == "constant"
+    assert G.dense_load_route(x[:1].expand(64)) == "strided"
+    assert G.dense_load_route(x[::2]) == "strided"
+    assert G.dense_load_route(x[1:]) == "contiguous"
 
 
 def test_wrapper_cuts_lanes_into_calls_that_fit(fake):
@@ -595,6 +766,9 @@ def test_constants_match_the_cuda_source():
     assert _define("DA_CHUNK") == G._DENSE_CHUNK
     assert _define("DA_MAX_LANES") == G.DENSE_MAX_LANES
     assert _define("DA_SMEM") == G.DENSE_SMEM
+    assert _define("DA_ZERO_BYTES") == G.DENSE_ZERO_BYTES == \
+        _define("DA_SMEM") + 256
+
     ops = re.search(r"enum \{ DA_SUM = (\d), DA_MIN = (\d), DA_MAX = (\d), "
                     r"DA_FSUM = (\d) \}", src).groups()
     assert [int(x) for x in ops] == [G._DA_OPS[k] for k in
@@ -613,11 +787,25 @@ def test_constants_match_the_cuda_source():
         "(int64_t)P * ((int64_t)n_f * W + 32))"
 
 
+@pytest.mark.parametrize("W", [1, 2, 101, 513, 2000, 9000])
+def test_dense_fits_is_smem_of_at_one_warp(W):
+    """dense_fits against the source's smem_of evaluated in Python (one
+    warp, the CTA's cells), at the edge of DA_SMEM too."""
+    def smem_of(n_acc, n_f, P, priv):
+        return 8 * (n_acc * W * (P if priv else 1) + P * (n_f * W + 32))
+    for n_acc in (1, 3, 4, 10, 27):
+        for n_f in (0, 1, 3, 24):
+            assert G.dense_fits(W, n_acc, n_f) == \
+                (smem_of(n_acc, n_f, 1, False) <= _define("DA_SMEM"))
+
+
 def test_denseparts_variants_still_apply():
     """tools/denseparts.py builds variants of csrc/dense_agg.cu by text
-    replacement: each replaced text is in the source exactly once."""
+    replacement: each replaced text of the kernel's own parts is in the
+    source exactly once."""
     from rayforce_tpu_torch.tools import denseparts
     src = _source()
-    for name, edits in denseparts.VARIANTS.items():
+    assert denseparts.PARTS["v3"]
+    for name, edits in denseparts.PARTS["v3"].items():
         for old, _new in edits:
             assert src.count(old) == 1, name
