@@ -15,8 +15,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import types as T
+from . import profiler
 from . import symbols
+from . import types as T
 from .obj import Obj, NULL_OBJ, sym, list_
 from .parser import Lambda, parse
 from .errors import RayError, err_arity, err_value, err_type
@@ -208,8 +209,9 @@ class Interp:
             self.frames.pop()
 
     def eval_str(self, src: str) -> Obj:
-        ast = parse(src, self.env)
-        return self.eval(ast)
+        with profiler.span("query"):
+            ast = parse(src, self.env)
+            return self.eval(ast)
 
 
 _CURRENT: list = []

@@ -23,8 +23,9 @@ from typing import Any
 
 import numpy as np
 
-from . import types as T
+from . import profiler
 from . import symbols
+from . import types as T
 from .errors import err_type
 
 
@@ -45,12 +46,16 @@ class DevPending:
     @property
     def arr(self):
         if self._arr is None:
-            self._arr = self._thunk()
+            tok = profiler.begin("gather")
+            try:
+                self._arr = self._thunk()
+            finally:
+                profiler.end(tok)
             self._thunk = None
         return self._arr
 
     def materialize(self) -> np.ndarray:
-        return self.arr.cpu().numpy()
+        return profiler.host("obj.materialize", self.arr.cpu).numpy()
 
 
 class DevPendingSliced(DevPending):
@@ -67,7 +72,8 @@ class DevPendingSliced(DevPending):
         self._full = full
 
     def materialize(self) -> np.ndarray:
-        return self._full.cpu().numpy()[: self.shape[0]]
+        return profiler.host("obj.materialize",
+                             self._full.cpu).numpy()[: self.shape[0]]
 
 
 class ConstPending(DevPending):
@@ -111,7 +117,8 @@ class DevPendingList(DevPending):
         self.elem_domain = domain
 
     def materialize(self):
-        vals, has = (x.cpu().numpy() for x in self.arr)
+        vals, has = (profiler.host("obj.materialize", x.cpu).numpy()
+                     for x in self.arr)
         t = self.elem_t
         if t == T.ENUM:
             return [enum_atom(self.elem_domain, int(v)) if m

@@ -25,6 +25,7 @@ import os
 import numpy as np
 import torch
 
+from ..core import profiler as prof
 from ..core import types as T
 from ..core.obj import Obj, to_np
 
@@ -306,8 +307,9 @@ def _k_minmax_all(cols):
 def _fetch(outs):
     """Every stats vector to the host in one transfer (f64 vectors ride
     as their i64 bits)."""
-    rows = torch.stack([o.view(torch.int64) if o.dtype == torch.float64
-                        else o for o in outs]).cpu().numpy()
+    rows = prof.host("device.stats", torch.stack(
+        [o.view(torch.int64) if o.dtype == torch.float64 else o
+         for o in outs]).cpu).numpy()
     return [r.view(np.float64) if o.dtype == torch.float64 else r
             for o, r in zip(outs, rows)]
 

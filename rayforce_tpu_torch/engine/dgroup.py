@@ -31,6 +31,7 @@ import math
 import numpy as np
 import torch
 
+from ..core import profiler as prof
 from ..core import types as T
 from ..core.obj import Obj, table, DevPendingSliced
 from . import device as dev
@@ -294,7 +295,8 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs, mesh):
             dist.stats["exchanged_bytes"] += int(base.est())
             dist.stats["kernel_calls"] += 1
             outs = base.inner(*ins)
-            ng_, ovf = int(outs[0][0]), int(outs[1][0])
+            ng_, ovf = prof.host("dgroup.counts", lambda: (
+                int(outs[0][0]), int(outs[1][0])))
             if ovf == 0:
                 return ng_, outs[2:]
             cap[0] = c * 2
@@ -319,7 +321,8 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs, mesh):
                 dist.stats["exchanged_bytes"] += int(base.est())
                 dist.stats["kernel_calls"] += 1
                 out = base.inner(*ins)
-                oe, oo = int(out[1][0]), int(out[2][0])
+                oe, oo = prof.host("dgroup.overflow", lambda: (
+                    int(out[1][0]), int(out[2][0])))
                 if oe == 0 and oo == 0:
                     return out[3:]          # (codes, fidx, *medians)
                 if oe:

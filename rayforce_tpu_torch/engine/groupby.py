@@ -35,6 +35,7 @@ import threading
 import numpy as np
 import torch
 
+from ..core import profiler as prof
 from .device import DeviceError
 from .psort import LAUNCHES, _LAUNCHES_LOCK, f64_from_order, f64_order
 
@@ -181,7 +182,8 @@ def _fixed_order_sums(codes, vals, n_cells):
     v = torch.stack(vals, 1)
     acc = torch.full((K * W, F), -0.0, dtype=torch.float64, device=dv)
     lo = 0
-    for size in torch.bincount(rank).tolist():
+    for size in prof.host("groupby.rank_sizes",
+                          torch.bincount(rank).tolist):
         t = keys[lo:lo + size]
         acc[t] = acc[t] + v[rows[lo:lo + size]]
         lo += size

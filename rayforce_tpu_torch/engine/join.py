@@ -33,6 +33,7 @@ import math
 import numpy as np
 import torch
 
+from ..core import profiler as prof
 from ..core import types as T
 from ..core.obj import DevPending, DevPendingList, Obj, enum_domain
 from . import device as dev
@@ -148,6 +149,12 @@ def match_ids_device(lkeys, rkeys, ltime=None, rtime=None, mode="first"):
     none), or None when the keys cannot be coded. mode 'first': the
     first right row with equal keys (left and inner joins); 'asof': the
     last right row at or before the left time within equal keys."""
+    with prof.span("engine: asof" if mode == "asof" else
+                   "engine: sortmerge"):
+        return _match_ids(lkeys, rkeys, ltime, rtime, mode)
+
+
+def _match_ids(lkeys, rkeys, ltime, rtime, mode):
     if not lkeys:
         if ltime is None:
             return None
@@ -242,7 +249,8 @@ def _mesh_eq(m, lcode, rcode):
     while True:
         ovf_l, ovf_r, ovf_b, rid, has = dist.dist_eq_probe(
             m, n_l, caps[0], caps[1], cap_b=caps[2])(lp, rp)
-        o_l, o_r, o_b = torch.cat([ovf_l, ovf_r, ovf_b]).tolist()
+        o_l, o_r, o_b = prof.host("join.overflow", torch.cat(
+            [ovf_l, ovf_r, ovf_b]).tolist)
         if not (o_l or o_r or o_b):
             return torch.where(dist.unshard(has, n_l),
                                dist.unshard(rid, n_l), NULL)
@@ -328,12 +336,12 @@ def lazy_right_only_col(col: Obj, rids, n_out: int) -> Obj:
 
 def all_matched(rids) -> bool:
     """Whether every left row matched (one scalar fetch)."""
-    return bool((rids != NULL).all())
+    return prof.host("join.all_matched", bool, (rids != NULL).all())
 
 
 def compact_ids(rids):
     """(lids, rsel, n_match): the matched left rows in left order and
     their right rows, for the inner join. One ordered stream compaction;
     learning its length is the one host fetch."""
-    lids = torch.nonzero(rids != NULL).squeeze(1)
+    lids = prof.host("join.compact", torch.nonzero, rids != NULL).squeeze(1)
     return lids, rids.index_select(0, lids), int(lids.shape[0])

@@ -29,6 +29,7 @@ import threading
 
 import torch
 
+from ..core import profiler as prof
 from .device import DeviceError
 
 INT32_MIN = -(1 << 31)
@@ -137,7 +138,8 @@ def sort_i32_cuda(words, n_keys=1, skipped=None, perm=False, route=-1):
         LAUNCHES["radix_sort"] += 1
     if skipped is not None:
         off = lib.rf_radix_sort_skip_offset()
-        skipped += state[off:off + 4 * n_keys].tolist()
+        skipped += prof.host("psort.skipped",
+                             state[off:off + 4 * n_keys].tolist)
     return (outs, p) if perm else outs
 
 

@@ -39,8 +39,9 @@ import time
 import numpy as np
 import torch
 
-from ..core import types as T
+from ..core import profiler as prof
 from ..core import symbols
+from ..core import types as T
 from ..core.obj import Obj, to_np, table, enum_domain
 from . import device as dev
 from . import groupby as G
@@ -168,7 +169,8 @@ def _compile_keys(src, by_pairs):
             lo, hi = dev.column_range(ck.cols[0].col)
         else:
             arr = as_tensor(ck.fn([dev.dev_col(r.col) for r in ck.cols]))
-            lo, hi = int(arr.min()), int(arr.max())
+            lo, hi = prof.host("select.key_range", lambda: (
+                int(arr.min()), int(arr.max())))
         rng = hi - lo + 1
         if rng <= 0:
             return None
@@ -712,31 +714,9 @@ def try_select_device(interp, src: Obj, outs, where_ast, by_ast, lim,
         return None
     if not outs:
         return None
-    # NOTE: the cache entry PINS src. Keys include id(src); a transient
-    # table could die and CPython could hand its id to a NEW same-length
-    # table, silently serving a stale plan that computes on the OLD
-    # captured columns. Holding src in the entry makes id reuse
-    # impossible while the entry lives.
-    key = (id(src), len(src),
-           _fingerprint(where_ast) if where_ast is not None else "",
-           _fingerprint(by_ast) if by_ast is not None else "",
-           tuple((sid, _fingerprint(ast)) for sid, ast in outs),
-           dev.mesh_key())
-    from ..core import profiler as _prof
-    ent = _plan_cache.get(key)
-    plan = ent[0] if ent is not None else None
-    if plan is None:
-        plan = _build_plan(src, outs, where_ast, by_ast)
-        _prof.tick("device: build plan")
-        if plan is None:
-            _plan_cache[key] = ("unsupported", src)
-            return None
-        _plan_cache[key] = (plan, src)
-        if len(_plan_cache) > 512:
-            # FIFO eviction: long-running servers must not pin tables
-            # (and their device columns) forever
-            _plan_cache.pop(next(iter(_plan_cache)))
-    if plan == "unsupported":
+    with prof.span("plan"):
+        plan = _cached_plan(src, outs, where_ast, by_ast)
+    if plan is None or plan == "unsupported":
         return None
 
     from . import dgroup as _dg
@@ -745,45 +725,26 @@ def try_select_device(interp, src: Obj, outs, where_ast, by_ast, lim,
     if isinstance(plan, (_dg._DPlan, _sa._SAPlan, _wd._WPlan)):
         t0 = time.perf_counter()
         if isinstance(plan, _dg._DPlan):
-            r = _dg.run(plan)
-            prof = {"engine": "dist-group"}
+            with prof.span("engine: dist-group"):
+                r = _dg.run(plan)
+            info = {"engine": "dist-group"}
         elif isinstance(plan, _sa._SAPlan):
-            r = _sa.run(plan)
-            prof = {"engine": "sortagg", "n_codes": plan.n_codes,
+            with prof.span("engine: sortagg"):
+                r = _sa.run(plan)
+            info = {"engine": "sortagg", "n_codes": plan.n_codes,
                     "exact": plan.exact}
         else:
-            r = _wd.run(plan)
-            prof = {"engine": "wide"}
-        prof["exec_ms"] = (time.perf_counter() - t0) * 1e3
+            with prof.span("engine: wide"):
+                r = _wd.run(plan)
+            info = {"engine": "wide"}
+        info["exec_ms"] = (time.perf_counter() - t0) * 1e3
         last_profile.clear()
-        last_profile.update(prof)
+        last_profile.update(info)
         return (None if empty_to_none else r) \
             if isinstance(r, str) else r
 
-    t0 = time.perf_counter()
-    if plan.spmd:
-        m = dev.mesh()
-        cols = [dev.dev_col_sharded(c, m) for c in plan.col_objs]
-    else:
-        cols = [dev.dev_col(c) for c in plan.col_objs]
-    buf = plan.fn(*cols)
-    t1 = time.perf_counter()
-    if plan.spmd:
-        # the combines counted as the reference counts its inline ones:
-        # ~2*(n-1)*replicated bytes
-        from ..parallel import dist as _dist
-        _dist.stats["exchanged_bytes"] += 2 * (m.n - 1) * _stacked_bytes(
-            plan.lanes_meta["layout"])
-        _dist.stats["kernel_calls"] += 1
-    buf = buf.cpu().numpy()         # ONE device->host transfer
-    t2 = time.perf_counter()
-    lanes = G.unpack(buf, plan.lanes_meta["layout"])
-    last_profile.clear()
-    last_profile.update({"dispatch_ms": (t1 - t0) * 1000,
-                         "exec+fetch_ms": (t2 - t1) * 1000,
-                         "n_codes": plan.n_codes,
-                         "spmd": plan.spmd})
-
+    with prof.span("engine: dense"):
+        lanes = _run_dense(plan)
     k = int(lanes["nocc"][0])
     if k == 0:
         # every row filtered out: the host path carries the empty/
@@ -846,6 +807,64 @@ def try_select_device(interp, src: Obj, outs, where_ast, by_ast, lim,
 
     return table(Obj(T.SYMBOL, np.asarray(out_names, dtype=np.int64)),
                  out_cols)
+
+
+def _cached_plan(src: Obj, outs, where_ast, by_ast):
+    """The plan of the select from the cache, or built and cached: None
+    where it cannot be built, "unsupported" where it was not before."""
+    # NOTE: the cache entry PINS src. Keys include id(src); a transient
+    # table could die and CPython could hand its id to a NEW same-length
+    # table, silently serving a stale plan that computes on the OLD
+    # captured columns. Holding src in the entry makes id reuse
+    # impossible while the entry lives.
+    key = (id(src), len(src),
+           _fingerprint(where_ast) if where_ast is not None else "",
+           _fingerprint(by_ast) if by_ast is not None else "",
+           tuple((sid, _fingerprint(ast)) for sid, ast in outs),
+           dev.mesh_key())
+    ent = _plan_cache.get(key)
+    if ent is not None:
+        return ent[0]
+    with prof.span("plan: build"):
+        plan = _build_plan(src, outs, where_ast, by_ast)
+    if plan is None:
+        _plan_cache[key] = ("unsupported", src)
+        return None
+    _plan_cache[key] = (plan, src)
+    if len(_plan_cache) > 512:
+        # FIFO eviction: long-running servers must not pin tables
+        # (and their device columns) forever
+        _plan_cache.pop(next(iter(_plan_cache)))
+    return plan
+
+
+def _run_dense(plan):
+    """Run a dense plan; its packed result lanes, fetched to the host in
+    one transfer."""
+    t0 = time.perf_counter()
+    if plan.spmd:
+        m = dev.mesh()
+        cols = [dev.dev_col_sharded(c, m) for c in plan.col_objs]
+    else:
+        cols = [dev.dev_col(c) for c in plan.col_objs]
+    buf = plan.fn(*cols)
+    t1 = time.perf_counter()
+    if plan.spmd:
+        # the combines counted as the reference counts its inline ones:
+        # ~2*(n-1)*replicated bytes
+        from ..parallel import dist as _dist
+        _dist.stats["exchanged_bytes"] += 2 * (m.n - 1) * _stacked_bytes(
+            plan.lanes_meta["layout"])
+        _dist.stats["kernel_calls"] += 1
+    buf = prof.host("select.dense_lanes", buf.cpu).numpy()
+    t2 = time.perf_counter()
+    lanes = G.unpack(buf, plan.lanes_meta["layout"])
+    last_profile.clear()
+    last_profile.update({"dispatch_ms": (t1 - t0) * 1000,
+                         "exec+fetch_ms": (t2 - t1) * 1000,
+                         "n_codes": plan.n_codes,
+                         "spmd": plan.spmd})
+    return lanes
 
 
 def self_recombine(a: _Agg, lanes, k, avg: bool,

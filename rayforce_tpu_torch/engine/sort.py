@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import profiler as prof
 from ..core import symbols
 from ..core import types as T
 from ..core.obj import enum_domain, table, to_np
@@ -104,6 +105,11 @@ def table_order_device(key_cols: list, desc: bool):
     unsupported. With a mesh the sample sort runs first; an error that
     is not a device fault falls back to the one-device sort, as in the
     reference."""
+    with prof.span("engine: sort"):
+        return _table_order(key_cols, desc)
+
+
+def _table_order(key_cols, desc):
     keys = []
     for c in key_cols:
         k = _key_array(c)

@@ -43,6 +43,7 @@ import math
 import numpy as np
 import torch
 
+from ..core import profiler as prof
 from ..core import types as T
 from ..core.obj import Obj, table, DevPendingSliced
 from . import device as dev
@@ -668,15 +669,13 @@ def run(plan: _SAPlan):
         # a previous run hit a straggler: this data needs the exact
         # plan — go straight to it (don't pay the head attempt again)
         return run(plan.fallback)
-    from ..core import profiler as _prof
     cols = [dev.dev_col(c) for c in plan.col_objs]
     outs = plan.fn(*cols)
-    _prof.tick("device: dispatch")
-    scalars = outs[0].cpu()
-    _prof.tick("device: execute+sync")
+    scalars = prof.host("sortagg.scalars", outs[0].cpu)
     ng, straggler = int(scalars[0]), int(scalars[1])
     if straggler and not plan.exact:
-        plan.fallback = plan._rebuild()
+        with prof.span("plan: build"):
+            plan.fallback = plan._rebuild()
         return run(plan.fallback)
     if ng <= 0:
         return "empty"

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import profiler as prof
 from ..core import types as T
 from ..core.obj import Obj, table, DevPendingSliced
 from . import device as dev
@@ -404,7 +405,7 @@ def run(plan: _WPlan):
     "empty". The host fetches one scalar, the group count."""
     cols = [dev.dev_col(c) for c in plan.col_objs]
     outs = plan.fn(*cols)
-    ng = int(outs[0].cpu()[0])
+    ng = int(prof.host("wide.groups", outs[0].cpu)[0])
     if ng <= 0:
         return "empty"
     lanes = dict(zip(plan.out_meta["names"], outs[1:]))

@@ -39,6 +39,7 @@ import math
 import numpy as np
 import torch
 
+from ..core import profiler as prof
 from ..core import types as T
 from ..core.obj import DevPending, Obj
 from . import device as dev
@@ -83,7 +84,8 @@ def _k_bounds4(lo, hi):
     """(min lo, max lo, min hi, max hi) in one host fetch."""
     lmin, lmax = torch.aminmax(lo)
     hmin, hmax = torch.aminmax(hi)
-    return [int(x) for x in torch.stack([lmin, lmax, hmin, hmax]).tolist()]
+    return [int(x) for x in prof.host(
+        "wjoin.bounds", torch.stack([lmin, lmax, hmin, hmax]).tolist)]
 
 
 # -- scans ---------------------------------------------------------------------
@@ -399,7 +401,8 @@ def _zero_sign(sv, out, li, ri, op):
     first zero and a max its last. Runs only when the column holds a
     -0.0."""
     z = sv == 0
-    if not bool((z & torch.signbit(sv)).any()):
+    if not prof.host("wjoin.zero_sign", bool,
+                     (z & torch.signbit(sv)).any()):
         return out
     pos = _next_pos(z)[li] if op == "min" else _prev_pos(z)[ri]
     return torch.where(out == 0, sv[pos.clamp(0, int(sv.shape[0]) - 1)],
@@ -450,7 +453,8 @@ def _span_of(li, ri, ok):
 
     def span():
         if not memo:
-            memo.append(int(torch.where(ok, ri - li + 1, 1).max()))
+            memo.append(prof.host("wjoin.span", int,
+                                  torch.where(ok, ri - li + 1, 1).max()))
         return memo[0]
     return span
 
@@ -588,7 +592,8 @@ def _mesh_window_join(m, lcode, rcode, rt_d, lo_d, hi_d, n_codes, tp, aggs):
     while True:
         outs = _mesh_wjoin_kernel(m, n_codes, tp, *caps, nl, aggs_spec,
                                   pay_dtypes)(*args)
-        o_l, o_r, o_b = torch.cat(outs[:3]).tolist()
+        o_l, o_r, o_b = prof.host("wjoin.overflow",
+                                  torch.cat(outs[:3]).tolist)
         if not (o_l or o_r or o_b):
             break
         if o_l:
@@ -664,7 +669,13 @@ def window_join_device(lkeys, rkeys, lo, hi, aggs, tp):
     that give them: they are called only once the shape is known to run
     here. aggs: [(out_sid, name, right column Obj, rtype)]. tp: 0 for
     window-join, 1 for window-join1. Returns {out_sid: lazy Obj}, or
-    None for a shape the device does not take."""
+    None for a shape the device does not take. Each lazy lane runs its
+    aggregate when forced, as the span "engine: wjoin" too."""
+    with prof.span("engine: wjoin"):
+        return _window_join(lkeys, rkeys, lo, hi, aggs, tp)
+
+
+def _window_join(lkeys, rkeys, lo, hi, aggs, tp):
     lead_l, time_l = lkeys[:-1], lkeys[-1]
     lead_r, time_r = rkeys[:-1], rkeys[-1]
     nl, nr = len(time_l), len(time_r)
@@ -710,8 +721,12 @@ def window_join_device(lkeys, rkeys, lo, hi, aggs, tp):
         return gathered[id(col)]
 
     span = _span_of(li, ri, ok)
+
+    def lane(op, c, t):
+        with prof.span("engine: wjoin"):
+            return _aggregate(op, t, None if op == "count" else
+                              sorted_col(c), li, ri, ok, span)
     return {out_sid: _lazy(
-        _out_type(name, rtype), lambda op=name, c=rcol, t=rtype: _aggregate(
-            op, t, None if op == "count" else sorted_col(c), li, ri, ok,
-            span), nl, _out_domain(name, rcol))
+        _out_type(name, rtype), lambda op=name, c=rcol, t=rtype: lane(
+            op, c, t), nl, _out_domain(name, rcol))
         for out_sid, name, rcol, rtype in aggs}

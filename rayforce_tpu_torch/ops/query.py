@@ -485,15 +485,12 @@ def _lazy_table(src: Obj, ids, gindex) -> Obj:
 def ray_select(interp, arg) -> Obj:
     from ..core import profiler as prof
     d = collect_lazy(interp.eval(arg))
-    prof.tick("select: eval spec")
+    prof.since_request("select: eval spec")
     fast = _try_device_select(interp, d)
     if fast is not None:
-        prof.tick("select: device engine")
         return fast
-    prof.tick("select: device probe")
     (src, outs, ids, gindex, by_names, by_cols, lim, _tsid) = \
         select_parts(interp, d)
-    prof.tick("select: fetch+filter+group")
 
     lazy = _lazy_table(src, ids, gindex)
     out_names: list[int] = []
@@ -520,7 +517,6 @@ def ray_select(interp, arg) -> Obj:
                 out_cols.append(v)
         finally:
             interp.qctx.pop()
-        prof.tick("select: apply mappings")
 
     n_rows = None
     if gindex is not None:

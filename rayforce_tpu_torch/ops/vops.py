@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..core import profiler as prof
 from ..core import types as T
 from ..core.obj import Obj, to_np, list_, dict_, is_null_scalar
 from ..core.errors import err_type, err_length
@@ -224,8 +225,9 @@ def _dev_arith_fast(op, a, b, ta, tb, rt, ct):
         if is_null_scalar(abs(sc.t), sval):
             return None
         v, nulls = vec_operand(vec, tv)
-        s = torch.tensor(T.DTYPE[ct](sval) if ct != T.F64
-                         else np.float64(sval), dtype=cdt, device=v.device)
+        s = prof.host("vops.scalar", torch.tensor,
+                      T.DTYPE[ct](sval) if ct != T.F64 else np.float64(sval),
+                      dtype=cdt, device=v.device)
         x, y = (v, s) if vec is a else (s, v)
     if op == "add":
         raw = x + y
@@ -239,7 +241,8 @@ def _dev_arith_fast(op, a, b, ta, tb, rt, ct):
     if nulls is not None:
         nv_out = null_of(rt)
         if nv_out is not None:
-            raw = torch.where(nulls, torch.tensor(
+            raw = torch.where(nulls, prof.host(
+                "vops.null", torch.tensor,
                 np.asarray(nv_out, dtype=T.DTYPE[rt]), device=raw.device),
                 raw)
         elif rt == T.F64:

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 import torch.distributed as td
 
+from ..core import profiler as prof
 from ..engine import groupby as G
 from ..engine.psort import f64_from_order, f64_order, sort_lex
 
@@ -656,7 +657,7 @@ def dist_shuffle_auto(mesh: Mesh, start_capacity: int):
             if c not in fns:
                 fns[c] = dist_shuffle(mesh, c)
             rk, rv, valid, ovf = fns[c](keys, values)
-            if int(ovf[0]) == 0:
+            if prof.host("dist.overflow", int, ovf[0]) == 0:
                 return rk, rv, valid
             c *= 2
 
@@ -841,7 +842,7 @@ def dist_wide_groupby_auto(mesh: Mesh, rows_local: int,
                 tried[c] = dist_wide_groupby(mesh, rows_local, c,
                                              lane_ops, n_codes)
             out = tried[c](codes, *lanes)
-            if int(out[1][0]) == 0:
+            if prof.host("dist.overflow", int, out[1][0]) == 0:
                 # (ng, codes, counts, fidx, *lane_results)
                 return (out[0],) + out[2:]
             c *= 2
@@ -1062,8 +1063,8 @@ def dist_med_groupby_auto(mesh: Mesh, rows_local: int, n_lanes: int):
                 tried[key] = dist_med_groupby(
                     mesh, rows_local, caps[0], caps[1], n_lanes)
             out = tried[key](codes, *lanes)
-            oe = int(out[1][0])
-            oo = int(out[2][0])
+            oe, oo = prof.host("dist.overflow", lambda: (
+                int(out[1][0]), int(out[2][0])))
             if oe == 0 and oo == 0:
                 # (ng, codes, fidx, *medians)
                 return (out[0],) + out[3:]
