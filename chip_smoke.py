@@ -8,8 +8,8 @@ Phases, each reported on its own line:
 1. card      the GPU's name and power limit (nvidia-smi);
 2. build     build (or load) every CUDA kernel of the port from the
              sources in this checkout, one nvcc for each, all started
-             together: the radix sort, the segmented scan and the dense
-             aggregate;
+             together: the radix sort, the segmented scan, the dense
+             aggregate and the wide engine's key-word kernels;
 3. kernels   each kernel against its plain PyTorch version on the card:
              the radix sort (engine/psort.py) for n in {977, 2^20+3,
              1e7}, 1-3 key words, random / heavily tied / INT32_MAX
@@ -66,7 +66,19 @@ Phases, each reported on its own line:
              every time; then tools/denseparts.py's three synthetic
              shapes at 1e7 rows (half the rows on a trash code, 7
              codes, 512 codes), three equal runs each, and a
-             [dense_time] line for each;
+             [dense_time] line for each. Then the wide engine's key-word
+             kernels (engine/wide.py wide_keys_cuda) against
+             wide_keys_plain on the inputs copied to the CPU, bit for
+             bit, at each of SORT_SIZES rows on q7's plan (G1's six
+             keys) and on a three-word plan with a where mask (i64
+             with a negative least value, i32 over its whole range, u8,
+             i16 and a broadcast scalar key): pack, the CUDA sort of
+             the packed words, the boundaries of the sorted words, the
+             decode of the carried words in a random order; one launch
+             a call. One [wide_keys_time] line a step of each plan at
+             1e7 rows: kernel ms, the plain version's ms on the card
+             (the torch i64 path the kernels replaced), the byte bound
+             and the launches of one call;
 4. main path the db-benchmark G1_1e7_1e2 table (1e7 rows, K=100) made
              on the card from a seeded torch.Generator, and the grouped
              selects of every engine through Runtime().eval_str: bench
@@ -87,7 +99,10 @@ Phases, each reported on its own line:
              aggregates by rows, cells, lanes and how the kernel reads
              the codes and lanes: each dense query (DENSE_QUERIES) must
              launch the dense kernel and none may run its plain version
-             (phases 7, 8, 10 and 11 the same). Then each query's warm
+             (phases 7, 8, 10 and 11 the same); a [wide_keys_path]
+             line the wide_keys kernels' launches per query, counted
+             from zero at the phase's start: 3 in q7 (pack, bound and
+             decode), 0 in every other query. Then each query's warm
              median exec_ms over 3 runs, and one [dense_time] line per
              dense query on the inputs it gave the dense aggregate:
              kernel, plain, torch-scatter-route and torch.bincount ms,
@@ -544,6 +559,130 @@ def time_sorts(psort, torch, gen):
     return out
 
 
+# -- the wide engine's key words ----------------------------------------------
+
+def _wide_plans(W, T, torch, gen, n):
+    """[(name, layout, key columns, where mask)] at n rows: q7's plan
+    (G1's six keys as i64 codes; at 1e7 rows id1-id5 in word 0, id6 and
+    the row position in word 1) and a three-word plan with a where mask
+    whose keys are an i64 with a negative least value, an i32 over its
+    whole range, an i64, a u8, an i16 and a broadcast scalar, each drawn
+    from its range's ends and a few values between (runs of equal
+    keys)."""
+    dev = torch.device("cuda")
+
+    def pick(choices, dtype):
+        c = torch.tensor(choices, dtype=torch.int64, device=dev)
+        i = torch.randint(0, len(choices), (n,), generator=gen, device=dev)
+        return c[i].to(dtype)
+    q7 = [(nm, 0, hi, T.I64, None) for nm, hi in (
+        ("id1", 100), ("id2", 100), ("id3", 100_000), ("id4", 100),
+        ("id5", 100), ("id6", 100_000))]
+    q7_keys = [torch.randint(0, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int64)
+               for _nm, _lo, hi, _rt, _dom in q7]
+    three = [("a", -2**39, 2**40, T.I64, None),
+             ("b", -2**31, 2**32, T.I32, None),
+             ("c", 0, 2**28, T.I64, None), ("d", 0, 256, T.U8, None),
+             ("e", -2**15, 2**16, T.I16, None), ("f", 7, 1, T.I64, None)]
+    three_keys = [pick([-2**39, -1, 0, 2**39 - 1], torch.int64),
+                  pick([-2**31, -1, 0, 2**31 - 1], torch.int32),
+                  pick([0, 2**28 - 1], torch.int64),
+                  pick([0, 255], torch.uint8),
+                  pick([-2**15, 2**15 - 1], torch.int16),
+                  torch.tensor(7, dtype=torch.int64, device=dev)]
+    mask = torch.rand(n, generator=gen, device=dev) < 0.7
+    lay3 = W.key_layout(three, n)
+    if len(lay3.words) != 3 or lay3.pos_word != 2:
+        raise AssertionError(f"the three-word plan has {lay3}")
+    return [("q7", W.key_layout(q7, n), q7_keys, None),
+            ("three_where", lay3, three_keys, mask)]
+
+
+def _same_all(torch, got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or g.shape != w.shape or \
+                not torch.equal(g.cpu(), w):
+            raise AssertionError(f"wide_keys {what}: output {i} differs")
+
+
+def check_wide_keys(W, T, psort, torch, gen):
+    """The key-word kernels against their plain version on the card's
+    inputs copied to the CPU, bit for bit, at each of SORT_SIZES on both
+    plans: pack the keys; the CUDA radix sort of the packed words; the
+    boundaries of the sorted words; the decode of the carried words in a
+    random order (the order sort's stand-in). Each step one launch.
+    Returns the cases checked."""
+    cases = 0
+    for n in SORT_SIZES:
+        for name, lay, keys, mask in _wide_plans(W, T, torch, gen, n):
+            def cpu(xs):
+                return [x.cpu() for x in xs]
+            before = psort.LAUNCHES["wide_keys"]
+            kw = W.pack_keys(lay, keys, mask, n)
+            plain_mask = None if mask is None else mask.cpu()
+            _same_all(torch, kw, W.pack_keys(lay, cpu(keys), plain_mask, n),
+                      f"pack {name} n={n}")
+            sw = psort.sort_i32(kw, n_keys=len(kw))
+            _same_all(torch, W.key_bounds(lay, sw),
+                      W.key_bounds(lay, cpu(sw)), f"bound {name} n={n}")
+            perm = torch.randperm(n, generator=gen, device=sw[0].device)
+            carried = [sw[i].index_select(0, perm) for wi in lay.carry
+                       for i in (2 * wi, 2 * wi + 1)]
+            _same_all(torch, W.decode_keys(lay, carried),
+                      W.decode_keys(lay, cpu(carried)),
+                      f"decode {name} n={n}")
+            if psort.LAUNCHES["wide_keys"] != before + 3:
+                raise AssertionError(f"wide_keys {name} n={n}: "
+                                     f"{psort.LAUNCHES['wide_keys'] - before}"
+                                     " launches for three calls")
+            cases += 3
+    return cases
+
+
+def wide_keys_bytes(ins, outs):
+    """Each input read once (one element where every row reads the
+    same), each output written once: a frozen copy lives in
+    portbench/metrics/wide_keys_roofline.py."""
+    def read(x):
+        return x.element_size() * (1 if x.dim() == 0 or x.stride(0) == 0
+                                   else x.numel())
+    return sum(read(x) for x in ins) + \
+        sum(x.numel() * x.element_size() for x in outs)
+
+
+def time_wide_keys(W, T, psort, torch, gen):
+    """One [wide_keys_time] line a step of each plan at ROWS rows: the
+    kernel's ms, the plain version's on the card (the torch i64 path the
+    kernel replaced) and the byte bound, with the kernel's launches a
+    call."""
+    out = []
+    for name, lay, keys, mask in _wide_plans(W, T, torch, gen, ROWS):
+        kw = W.pack_keys(lay, keys, mask, ROWS)
+        sw = psort.sort_i32(kw, n_keys=len(kw))
+        bounds = W.key_bounds(lay, sw)
+        carried = [sw[i] for wi in lay.carry for i in (2 * wi, 2 * wi + 1)]
+        dec = W.decode_keys(lay, carried)
+        calls = {"pack": (keys + ([mask] if mask is not None else []),
+                          kw),
+                 "bound": (sw, bounds), "decode": (carried, dec)}
+        for step, (ins, outs) in calls.items():
+            before = psort.LAUNCHES["wide_keys"]
+            W.wide_keys_cuda(step, lay, ins, outs)
+            launches = psort.LAUNCHES["wide_keys"] - before
+            out.append({
+                "plan": name, "step": step, "rows": ROWS,
+                "words": len(lay.words), "dims": len(lay.mins),
+                "ms": cuda_ms(lambda: W.wide_keys_cuda(step, lay, ins,
+                                                       outs)),
+                "plain_ms": cuda_ms(lambda: W.wide_keys_plain(
+                    step, lay, ins, outs)),
+                "bound_ms": wide_keys_bytes(ins, outs) / HBM_BYTES_PER_S *
+                1e3,
+                "launches": launches})
+    return out
+
+
 SCAN_SIZES = (1, 977, 1023, 1024, 1025, (1 << 20) + 3, ROWS, 3 * ROWS)
 # run lengths: 1, 3, 2500, one run over every row, runs of 3500 rows (each
 # over three or more 1024-row blocks), and sorted ids from -5 with -2s
@@ -992,8 +1131,9 @@ def main_path(rows, device):
     Returns (launches of the main path's run, launches per query, warm
     median exec_ms per query, calls of the sort per (rows, key words,
     words) in that run, the host copies of the results, the scan
-    kernel's launches in that run, and the dense kernel's launches in
-    that run with the first call of each dense query, by query)."""
+    kernel's launches in that run, the dense kernel's launches in that
+    run with the first call of each dense query, by query, and the
+    wide_keys kernels' launches in that run)."""
     import torch
     from rayforce_tpu_torch import Runtime
     from rayforce_tpu_torch.core import symbols
@@ -1025,9 +1165,10 @@ def main_path(rows, device):
 
     scans, scan_per_query = {}, {}
     dense, dense_per_query, dense_calls = {}, {}, {}
+    wide_per_query = {}
     psort.sort_i32_cuda = recording
     psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["seg_scan"] = \
-        psort.LAUNCHES["dense_agg"] = 0
+        psort.LAUNCHES["dense_agg"] = psort.LAUNCHES["wide_keys"] = 0
     try:
         with count_scans(scans), count_dense(dense):
             for name, (q, engine) in QUERIES.items():
@@ -1049,6 +1190,8 @@ def main_path(rows, device):
                     before["seg_scan"]
                 dense_per_query[name] = psort.LAUNCHES["dense_agg"] - \
                     before["dense_agg"]
+                wide_per_query[name] = psort.LAUNCHES["wide_keys"] - \
+                    before["wide_keys"]
                 if per_query[name] <= 0:
                     raise AssertionError(f"{name}: the CUDA sort never "
                                          "launched")
@@ -1057,6 +1200,16 @@ def main_path(rows, device):
     if device == "cuda":
         torch.cuda.synchronize()
     launches = psort.LAUNCHES["radix_sort"]
+    # pack, bound and decode: one launch each in a wide query, none in
+    # the other engines
+    for name, (q, engine) in QUERIES.items():
+        want = 3 if engine == "wide" else 0
+        if wide_per_query[name] != want:
+            raise AssertionError(f"{name}: {wide_per_query[name]} wide_keys "
+                                 f"launches, not {want}")
+    wide_launches = psort.LAUNCHES["wide_keys"]
+    phase("wide_keys_path", path="main", launches=wide_launches,
+          per_query=json.dumps(wide_per_query, separators=(",", ":")))
     scan_launches = scan_report("main", scan_per_query, scans,
                                 SCAN_QUERIES["main"])
     dense_launches_ = dense_report("main", dense_per_query, dense,
@@ -1089,7 +1242,7 @@ def main_path(rows, device):
         phase("exec_ms", query=name, engine=engine, median_ms=exec_ms[name],
               runs=runs, bit_identical=True)
     return launches, per_query, exec_ms, shapes, host_cols, scan_launches, \
-        (dense_launches_, dense_calls)
+        (dense_launches_, dense_calls), wide_launches
 
 
 def _exec_ms(prof):
@@ -2157,7 +2310,9 @@ def main():
     sys.path.insert(0, HERE)
     from rayforce_tpu_torch.engine import cubuild, psort
     from rayforce_tpu_torch.engine import device as dev
+    from rayforce_tpu_torch.core import types as T
     from rayforce_tpu_torch.engine import groupby as G
+    from rayforce_tpu_torch.engine import wide as W
     from rayforce_tpu_torch.tools import denseparts
     from rayforce_tpu_torch.tools.sortprof import seg_scan_shapes
 
@@ -2173,11 +2328,12 @@ def main():
 
     # 2. build: one nvcc for each kernel family, all started together
     t0 = time.perf_counter()
-    cubuild.build(["radix_sort", "seg_scan", "dense_agg"])
+    cubuild.build(["radix_sort", "seg_scan", "dense_agg", "wide_keys"])
     psort._radix_lib()
     G._seg_lib()
     G._dense_lib()
-    phase("build", kernels="radix_sort,seg_scan,dense_agg",
+    W._wide_keys_lib()
+    phase("build", kernels="radix_sort,seg_scan,dense_agg,wide_keys",
           seconds=round(time.perf_counter() - t0, 3),
           nvcc_seconds=json.dumps(cubuild.build_seconds))
 
@@ -2212,11 +2368,20 @@ def main():
     for r in dense_times:
         phase("dense_time", **r)
 
+    t0 = time.perf_counter()
+    wide_cases = check_wide_keys(W, T, psort, torch, gen)
+    phase("kernels", wide_keys="equal", sizes=list(SORT_SIZES),
+          plans="q7,three_where", cases=wide_cases, max_abs_err=0,
+          seconds=round(time.perf_counter() - t0, 3))
+    wide_times = time_wide_keys(W, T, psort, torch, gen)
+    for r in wide_times:
+        phase("wide_keys_time", **r)
+
     # 4. the main path at full size
     main_launches, per_query, _ms, shapes, single, main_scans, \
-        (main_dense, dense_calls) = main_path(ROWS, "cuda")
+        (main_dense, dense_calls), main_wide = main_path(ROWS, "cuda")
     phase("main_path", launches=main_launches, seg_scan_launches=main_scans,
-          dense_agg_launches=main_dense,
+          dense_agg_launches=main_dense, wide_keys_launches=main_wide,
           per_query=json.dumps(per_query, separators=(",", ":")))
     for name, call in dense_calls.items():
         r = time_dense(G, psort, torch, name, call)
@@ -2345,6 +2510,22 @@ def main():
         "bound_ms": dense["bound_ms"],
         "bound_by": "bytes",
         "library_ms": dense["library_ms"],
+    }, {
+        "name": "wide_keys",
+        "route": "cuda",
+        "source": "rayforce_tpu_torch/engine/csrc/wide_keys.cu",
+        "replaces": "none: rayforce_tpu/engine/wide.py pipeline's key "
+                    "arithmetic, jnp under jax.jit (q7: pack + bound + "
+                    "decode)",
+        "launches": main_wide,
+        "max_abs_err": 0,
+        "ms": sum(r["ms"] for r in wide_times if r["plan"] == "q7"),
+        "plain_ms": sum(r["plain_ms"] for r in wide_times
+                        if r["plan"] == "q7"),
+        "bound_ms": sum(r["bound_ms"] for r in wide_times
+                        if r["plan"] == "q7"),
+        "bound_by": "bytes",
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -16,11 +16,20 @@ design as engine/sortagg.py but with:
 - outputs stay ON DEVICE (DevPendingSliced); the host fetches one
   scalar (the group count).
 
-Both sorts go through the psort entry (`sort_lex`), which launches the
-hand-written CUDA radix sort on the card: i64 key words travel as two
-i32 words each.
+The key words live in the radix sort's own i32 form from packing to
+decoding (an i64 word as psort's pair: the signed high i32, the low i32
+with its sign bit flipped). On the card three hand-written kernels
+(`csrc/wide_keys.cu`, entered through `_wide_keys`) pack them from the
+key columns, find the run boundaries in the sorted words and decode the
+key columns from the words the order sort carried; on a CPU tensor
+`wide_keys_plain` does the same with the i64 formulas. Both sorts go
+through `psort.sort_lex` with these i32 words as their keys, so nothing
+is split or joined around them.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,8 +39,9 @@ from ..core import types as T
 from ..core.obj import Obj, table, DevPendingSliced
 from . import device as dev
 from . import groupby as G
+from .device import DeviceError
 from .exprc import as_tensor, torch_dtype
-from .psort import sort_lex
+from .psort import LAUNCHES, _LAUNCHES_LOCK, join64, sort_lex, split64
 
 _TRASH_SHIFT = 61
 
@@ -54,11 +64,244 @@ def _tdt(rt):
     return torch_dtype(T.DTYPE[rt])
 
 
-def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
-    if n_rows >= (1 << 30) or n_rows == 0:
+# -- the key words ---------------------------------------------------------
+
+class KeyLayout(NamedTuple):
+    """build_plan's word layout. words[w]: ((dim, shift, bits), ...) of
+    i64 word w, dims in order; mins[d]: dim d's least value; the row
+    position in the low pos_bits of word pos_word; carry: the words that
+    hold a dim, which the order sort carries (every word but a last one
+    that holds the position alone); out: each dim's output dtype."""
+    words: tuple
+    mins: tuple
+    pos_word: int
+    pos_bits: int
+    carry: tuple
+    out: tuple
+
+
+# (restype, argtypes) of every extern "C" function of csrc/wide_keys.cu;
+# tests/test_torch_wide.py holds this table against the source
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+WIDE_KEYS_ARGTYPES = {
+    "rf_wide_keys_pack": (_I32, [_I64, _I32, _P, _P, _P, _P, _P, _P, _I32,
+                                 _I32, _P, _I64, _P, _P, _P]),
+    "rf_wide_keys_bound": (_I32, [_I64, _I32, _I32, _I32, _P, _P, _P, _P,
+                                  _P, _P, _P]),
+    "rf_wide_keys_decode": (_I32, [_I64, _I32, _P, _P, _I32, _P, _P, _P,
+                                   _P, _P, _P, _P]),
+}
+# the most key dims a plan may have (the source's WK_MAX_DIMS; the
+# tests hold it against the source)
+WIDE_KEYS_MAX_DIMS = 64
+# the kernels' column types (a bool is read as its byte)
+_WK_KINDS = {torch.bool: 0, torch.uint8: 0, torch.int8: 1, torch.int16: 2,
+             torch.int32: 3, torch.int64: 4}
+
+_wk_lib = None
+
+
+def _wide_keys_lib():
+    global _wk_lib
+    if _wk_lib is None:
+        from . import cubuild
+        lib = cubuild.load("wide_keys")
+        try:
+            for name, (res, args) in WIDE_KEYS_ARGTYPES.items():
+                fn = getattr(lib, name)
+                fn.restype = res
+                fn.argtypes = args
+        except AttributeError as e:
+            raise DeviceError(f"wide key library: {e}") from e
+        _wk_lib = lib
+    return _wk_lib
+
+
+def _stride(x):
+    """Elements a row of a key column or mask: 0 for a broadcast scalar."""
+    return 0 if x.numel() == 1 else x.stride(0)
+
+
+def wide_keys_plain(step, lay, ins, outs):
+    """The plain PyTorch version of `wide_keys_cuda` (the engine takes it
+    for CPU tensors; chip_smoke.py times it on the card as the torch
+    path the kernels replace): the i64 formulas, each word split as
+    psort.split64. Steps:
+    "pack": ins the key columns (dim order; a broadcast scalar as one
+      element) and the where mask if the plan has one; outs the 2
+      len(words) i32 sort words (high, low of each word);
+    "bound": ins the sorted words; outs flags (bool: a valid row whose
+      key, the position bits masked, differs from the row above), inc
+      (i32: flags + not valid), pos (i64: the row position) and fkey
+      (i32: pos on a flagged row, else INT32_MAX);
+    "decode": ins the carried words (high, low of each word of
+      lay.carry); outs each dim's column in its output dtype."""
+    n, d = int(outs[0].shape[0]), outs[0].device
+    if step == "pack":
+        nd = len(lay.mins)
+        vals = [k.to(I64).expand(n) - lo for k, lo in zip(ins, lay.mins)]
+        for wi, wdims in enumerate(lay.words):
+            w = torch.zeros(n, dtype=I64, device=d)
+            for di, sh, _bits in wdims:
+                w = w | (vals[di] << sh)
+            if wi == lay.pos_word:
+                w = w | torch.arange(n, dtype=I64, device=d)
+            if wi == 0 and len(ins) > nd:
+                w = w | torch.where(ins[nd].to(BOOL).expand(n), 0,
+                                    1 << _TRASH_SHIFT)
+            hi, lo = split64(w)
+            outs[2 * wi].copy_(hi)
+            outs[2 * wi + 1].copy_(lo)
+    elif step == "bound":
+        sw = [join64(ins[2 * i], ins[2 * i + 1])
+              for i in range(len(lay.words))]
+        posmask = (1 << lay.pos_bits) - 1
+        valid = sw[0] < (1 << _TRASH_SHIFT)   # trash bit clear
+        diff = torch.zeros(max(n - 1, 0), dtype=BOOL, device=d)
+        for i, w in enumerate(sw):
+            if i == lay.pos_word:
+                w = w & ~posmask
+            diff |= w[1:] != w[:-1]
+        flags = valid & torch.cat([torch.ones(1, dtype=BOOL, device=d),
+                                   diff])
+        pos = sw[lay.pos_word] & posmask
+        outs[0].copy_(flags)
+        outs[1].copy_(flags.to(I32) + (~valid).to(I32))
+        outs[2].copy_(pos)
+        outs[3].copy_(torch.where(flags, pos, 0x7FFFFFFF))
+    elif step == "decode":
+        for ci, wi in enumerate(lay.carry):
+            w = join64(ins[2 * ci], ins[2 * ci + 1])
+            for di, sh, bits in lay.words[wi]:
+                outs[di].copy_(((w >> sh) & ((1 << bits) - 1)) +
+                               lay.mins[di])
+    else:
+        raise ValueError(f"wide_keys: no step {step!r}")
+
+
+def wide_keys_cuda(step, lay, ins, outs):
+    """The CUDA key-word kernels (csrc/wide_keys.cu) on CUDA tensors, one
+    launch a call: bit for bit `wide_keys_plain`, the same steps,
+    inputs and outputs. Key columns and the mask are read in place at
+    their strides. Any failure to build, load or launch raises
+    DeviceError."""
+    n = int(outs[0].shape[0])
+    dv = outs[0].device
+    nd, nw = len(lay.mins), len(lay.words)
+    words_in = [x.dtype for x in ins] == [I32] * len(ins)
+    ok = {"pack": nd <= len(ins) <= nd + 1 and len(outs) == 2 * nw and
+          all(x.element_size() == 1 for x in ins[nd:]) and
+          all(x.dtype == I32 for x in outs),
+          "bound": words_in and len(ins) == 2 * nw and
+          [x.dtype for x in outs] == [BOOL, I32, I64, I32],
+          "decode": words_in and len(ins) == 2 * len(lay.carry) and
+          len(outs) == nd and all(x.dtype != BOOL for x in outs)}
+    bad = [x for x in ins + outs if x.device != dv or x.dim() > 1 or
+           x.numel() not in (1, n) or x.dtype not in _WK_KINDS]
+    if not ok.get(step, True) or bad or any(
+            x.numel() != n or not x.is_contiguous() for x in outs):
+        raise ValueError(f"wide_keys {step}: {n} rows on {dv}, ins " +
+                         ", ".join(f"{x.dtype} {tuple(x.shape)} on {x.device}"
+                                   for x in ins) + "; outs " +
+                         ", ".join(f"{x.dtype} {tuple(x.shape)}"
+                                   for x in outs))
+    lib = _wide_keys_lib()
+
+    def ptrs(xs):
+        return (ctypes.c_void_p * max(len(xs), 1))(
+            *[x.data_ptr() for x in xs])
+
+    def ints(xs, t=ctypes.c_int):
+        return (t * max(len(xs), 1))(*xs)
+
+    dims = [d for wd in lay.words for d in wd]
+    word_of = [wi for wi, wd in enumerate(lay.words) for _d in wd]
+    try:
+        with G._card_stream(dv) as stream:
+            if step == "pack":
+                keys, mask = ins[:nd], ins[nd:]
+                rc = lib.rf_wide_keys_pack(
+                    n, nd, ptrs(keys), ints([_stride(k) for k in keys],
+                                            ctypes.c_int64),
+                    ints([_WK_KINDS[k.dtype] for k in keys]),
+                    ints(list(lay.mins), ctypes.c_int64), ints(word_of),
+                    ints([sh for _di, sh, _b in dims]), nw, lay.pos_word,
+                    mask[0].data_ptr() if mask else None,
+                    _stride(mask[0]) if mask else 0, ptrs(outs[0::2]),
+                    ptrs(outs[1::2]), stream)
+            elif step == "bound":
+                rc = lib.rf_wide_keys_bound(
+                    n, nw, lay.pos_word, lay.pos_bits,
+                    ptrs(ins[0::2]), ptrs(ins[1::2]), *[
+                        x.data_ptr() for x in outs], stream)
+            elif step == "decode":
+                rc = lib.rf_wide_keys_decode(
+                    n, len(lay.carry), ptrs(ins[0::2]), ptrs(ins[1::2]),
+                    len(dims), ints(word_of),
+                    ints([sh for _di, sh, _b in dims]),
+                    ints([b for _di, _sh, b in dims]),
+                    ints(list(lay.mins), ctypes.c_int64),
+                    ints([_WK_KINDS[x.dtype] for x in outs]), ptrs(outs),
+                    stream)
+            else:
+                raise ValueError(f"wide_keys: no step {step!r}")
+    except (DeviceError, ValueError):
+        raise
+    except Exception as e:
+        raise DeviceError(f"wide_keys {step}: {type(e).__name__}: {e}") \
+            from e
+    if rc != 0:
+        raise DeviceError(f"wide_keys {step} launch failed: cudaError {rc}")
+    with _LAUNCHES_LOCK:
+        LAUNCHES["wide_keys"] += 1
+
+
+def _wide_keys(step, lay, ins, outs):
+    """One step of the key words (`wide_keys_plain`'s contract): on a
+    CUDA tensor the hand-written kernel, on a CPU tensor the plain
+    version; nothing in between."""
+    d = outs[0].device
+    if d.type == "cuda":
+        return wide_keys_cuda(step, lay, ins, outs)
+    if d.type == "cpu":
+        return wide_keys_plain(step, lay, ins, outs)
+    raise DeviceError(f"wide_keys: no key-word kernels for device {d}")
+
+
+def pack_keys(lay, keys, mask, n):
+    """The 2 len(lay.words) i32 sort words of n rows (high, low of each
+    word) from the key columns and the where mask (or None)."""
+    buf = torch.empty((2 * len(lay.words), n), dtype=I32,
+                      device=keys[0].device)
+    outs = list(buf.unbind(0))
+    _wide_keys("pack", lay, list(keys) + ([mask] if mask is not None
+                                          else []), outs)
+    return outs
+
+
+def key_bounds(lay, words):
+    """(flags, inc, pos, fkey) of the sorted words (`wide_keys_plain`)."""
+    n, d = int(words[0].shape[0]), words[0].device
+    outs = [torch.empty(n, dtype=t, device=d) for t in (BOOL, I32, I64, I32)]
+    _wide_keys("bound", lay, list(words), outs)
+    return outs
+
+
+def decode_keys(lay, words):
+    """Each key dim's column from the carried words (high, low of each
+    word of lay.carry)."""
+    n, d = int(words[0].shape[0]), words[0].device
+    outs = [torch.empty(n, dtype=t, device=d) for t in lay.out]
+    _wide_keys("decode", lay, list(words), outs)
+    return outs
+
+
+def key_layout(key_meta, n_rows):
+    """The key words of n_rows rows grouped by key_meta's dims (name, lo,
+    rng, rtype, enum domain): a KeyLayout, or None where a dim is wider
+    than 60 bits or the plan has more dims than the kernels take."""
+    if len(key_meta) > WIDE_KEYS_MAX_DIMS:
         return None
-    if any(a.name in ("med", "dev") for a in aggs):
-        return None   # host path covers these at extreme cardinality
     pos_bits = max((n_rows - 1).bit_length(), 1)
 
     # --- pack key dims into i64 words (word 0 keeps bit 61 for trash) --
@@ -94,10 +337,23 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
             words[-1][i] = (di, sh + pos_bits, bits)
     else:
         words.append([])
-        used.append(0)
-    pos_word = len(words) - 1
-    n_words = len(words)
-    posmask = (1 << pos_bits) - 1
+    return KeyLayout(
+        words=tuple(tuple(w) for w in words),
+        mins=tuple(int(lo) for _bits, lo in dims),
+        pos_word=len(words) - 1, pos_bits=pos_bits,
+        carry=tuple(wi for wi, w in enumerate(words) if w),
+        out=tuple(I64 if rt == T.SYMBOL or dom is not None else _tdt(rt)
+                  for _nm, _lo, _rng, rt, dom in key_meta))
+
+
+def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
+    if n_rows >= (1 << 30) or n_rows == 0:
+        return None
+    if any(a.name in ("med", "dev") for a in aggs):
+        return None   # host path covers these at extreme cardinality
+    lay = key_layout(key_meta, n_rows)
+    if lay is None:
+        return None
 
     # --- column slots ----------------------------------------------------
     col_objs: list = []
@@ -188,21 +444,9 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
         mask = None
         if cw is not None:
             mask = as_tensor(cw.fn(sub_env(w_map))).to(BOOL)
-        dvals = []
-        for ck, mp, (bits, lo) in zip(key_cs, key_maps, dims):
-            arr = as_tensor(ck.fn(sub_env(mp)))
-            dvals.append(arr.to(I64).expand(N) - lo)
-
-        wvals = []
-        for wi, wdims in enumerate(words):
-            w = torch.zeros(N, dtype=I64, device=d)
-            for di, sh, bits in wdims:
-                w = w | (dvals[di] << sh)
-            if wi == pos_word:
-                w = w | torch.arange(N, dtype=I64, device=d)
-            wvals.append(w)
-        if mask is not None:
-            wvals[0] = wvals[0] | torch.where(mask, 0, 1 << _TRASH_SHIFT)
+        keys = [as_tensor(ck.fn(sub_env(mp)))
+                for ck, mp in zip(key_cs, key_maps)]
+        kw = pack_keys(lay, keys, mask, N)
 
         arrs = {}
         for cid, ci in cinfo.items():
@@ -224,24 +468,15 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
 
         # every key is unique (the row position rides the last word),
         # so the order is fully determined
-        sw, sops = sort_lex(wvals, ops_in)
+        sw, sops = sort_lex(kw, ops_in)
 
-        valid = sw[0] < (1 << _TRASH_SHIFT)   # trash bit clear
-        swc = [sw[i] if i != pos_word else sw[i] & ~posmask
-               for i in range(n_words)]
-        diff = None
-        for i in range(n_words):
-            dd = swc[i][1:] != swc[i][:-1]
-            diff = dd if diff is None else (diff | dd)
-        flags = valid & torch.cat([torch.ones(1, dtype=BOOL, device=d),
-                                   diff])
+        flags, inc, pos_row, fkey = key_bounds(lay, sw)
         ng = flags.sum()
 
         # REVERSED inclusive segmented scans put every segment's TOTAL
         # on its FIRST row — so all per-group quantities live on the
         # (already known) boundary rows with no boundary compaction
-        segid = torch.cumsum(flags.to(I32) + (~valid).to(I32), 0,
-                             dtype=I32)
+        segid = torch.cumsum(inc, 0, dtype=I32)
 
         def rsum(x):
             return G.seg_doubling_sum(segid, x, reverse=True)
@@ -253,7 +488,6 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
             return G.seg_doubling_max(segid, x, reverse=True)
 
         counts = rsum(torch.ones(N, dtype=I64, device=d))
-        pos_row = sw[pos_word] & posmask
         fidx = pos_row          # at a segment start: min pos = fidx
         lidx = rmax(pos_row)    # at a segment start: max pos = lidx
 
@@ -357,32 +591,21 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
                 lanes[lane] = s.to(_tdt(ot))
 
         # ---- first-appearance ordering: carry lanes through ONE sort ----
-        # only the first ng rows are read, so the order of the tied
-        # non-boundary tail (all 0x7FFFFFFF) does not matter; counts
-        # ride as i32 (n_rows < 2^30)
-        fkey = torch.where(flags, fidx, 0x7FFFFFFF).to(I32)
+        # fkey: the first row on a boundary row, else INT32_MAX; only the
+        # first ng rows are read, so the order of the tied non-boundary
+        # tail does not matter; counts ride as i32 (n_rows < 2^30). The
+        # key words ride as they are: decoding never reads their
+        # position bits
         carry_names = list(lanes.keys())
         carried = [lanes[nm].to(I32) if nm.startswith("count:")
                    else lanes[nm] for nm in carry_names]
-        (_fk,), sorted2 = sort_lex([fkey], swc + carried)
-        cw_o = sorted2[:n_words]
-        lane_o = {}
-        for nm, ln in zip(carry_names, sorted2[n_words:]):
-            lane_o[nm] = ln.to(I64) if nm.startswith("count:") else ln
+        cwords = [w for wi in lay.carry for w in sw[2 * wi:2 * wi + 2]]
+        (_,), sorted2 = sort_lex([fkey], cwords + carried)
+        lane_o = {nm: ln.to(I64) if nm.startswith("count:") else ln
+                  for nm, ln in zip(carry_names, sorted2[len(cwords):])}
 
-        # decode key dims from ordered code words (elementwise)
-        out = []
-        names = []
-        for wi, wdims in enumerate(words):
-            for di, sh, bits in wdims:
-                nm, lo, rng, rt, dom = key_meta[di]
-                vals = ((cw_o[wi] >> sh) & ((1 << bits) - 1)) + lo
-                if rt == T.SYMBOL or dom is not None:
-                    arr = vals.to(I64)
-                else:
-                    arr = vals.to(_tdt(rt))
-                names.append(f"key{di}")
-                out.append(arr)
+        out = decode_keys(lay, sorted2[:len(cwords)])
+        names = [f"key{di}" for di in range(len(out))]
         for nm in carry_names:
             names.append(nm)
             out.append(lane_o[nm])

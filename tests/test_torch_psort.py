@@ -311,13 +311,13 @@ def test_permutation_return_matches_stable_argsort(n):
         assert np.array_equal(got.numpy(), x[want])
 
 
-def _extern_c_signatures():
+def _extern_c_signatures(name="radix_sort"):
     """{name: (return kind, [argument kinds])} of every extern "C"
-    function in csrc/radix_sort.cu; a kind is 'ptr', 'i64' or 'i32'."""
+    function in csrc/<name>.cu; a kind is 'ptr', 'i64' or 'i32'."""
     import os
     import re
     src = os.path.join(os.path.dirname(psort.__file__), "csrc",
-                       "radix_sort.cu")
+                       f"{name}.cu")
     text = open(src).read()
 
     def kind(decl):
