@@ -14,6 +14,9 @@ nearest precision below the configuration's float64, put in the
 program's place and compared the same way). Prints one JSON line per
 seed, then the lower reading (the largest the program gave) and the
 upper one (the smallest the control gave) of each number compared.
+A cell of N > 1 chips runs as a run does (`harness.py`): on the
+program's mesh of N shards, its tables made, placed and checked shard
+by shard where its generator makes shards.
 """
 from __future__ import annotations
 
@@ -32,8 +35,9 @@ from portbench import harness  # noqa: E402
 def program_reading(cell, seed, device, make_runtime=harness.runtime):
     """{query: reading} of the program on the seed's tables."""
     import torch
-    tensors = harness.make_tables(cell.config, seed, device)
-    rt = make_runtime(harness.place_tables(tensors))
+    tensors = harness.cell_tables(cell, seed, device)
+    rt = make_runtime(harness.place_tables(
+        tensors, harness.check_mesh(cell, device)))
     got = {}
     for q in cell.traffic["queries"]:
         harness.force(rt.eval_str(q["text"]))
@@ -43,7 +47,8 @@ def program_reading(cell, seed, device, make_runtime=harness.runtime):
     del rt
     gc.collect()
     if device == "cuda":
-        torch.cuda.synchronize()
+        for i in range(cell.chips):
+            torch.cuda.synchronize(i)
         torch.cuda.empty_cache()
     return {q["name"]: cmp.compare(got.pop(q["name"]), _ref(q, tensors))
             for q in cell.traffic["queries"]}
@@ -53,7 +58,7 @@ def control_reading(cell, seed, device):
     """{query: reading} of the reference in float32 in the program's
     place."""
     import torch
-    tensors = harness.make_tables(cell.config, seed, device)
+    tensors = harness.cell_tables(cell, seed, device)
     out = {}
     for q in cell.traffic["queries"]:
         low = [(name, val) for name, val, _kind in
@@ -104,8 +109,12 @@ def main(argv=None):
         harness.log("control: no CUDA card")
         return 2
     cell = harness.load_cell(args.workload)
+    if torch.cuda.device_count() < cell.chips:
+        harness.log(f"control: {cell.name} needs {cell.chips} cards")
+        return 2
     harness.build_kernels()
     from rayforce_tpu_torch.engine import device as dev
+    harness.switch_mesh(cell.chips)
     dev.set_device("cuda")
     lower, upper = readings(
         cell, [int(s) for s in args.seeds.split(",")],

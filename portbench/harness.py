@@ -18,6 +18,41 @@ the device synchronised; with `trace`, the loop runs under
 torch.profiler with the kernels' entry points recorded. Then, with the
 program's state freed, one result of each query, sampled from the
 window by the seed, is held against the plain reference.
+
+A cell of N > 1 chips runs as the program's mesh of one row shard per
+card:
+- the mesh: `RAYFORCE_MESH=N`, the program's own switch, is set before
+  its first mesh lookup (`engine/device.py` `mesh()`); the run ends
+  with no result unless that mesh has N shards, shard i on card i (on
+  CPU torch: N shards), before the tables are made and again after
+  set-up. A one-chip cell runs with no mesh: the variable is removed
+  and the run ends with no result if the program has one.
+- the tables: a generator that defines `make_shards(config, seed,
+  devices)` makes them shard by shard: {table: {column: [one tensor a
+  card]}}, row block i on card i, in equal blocks, so that no card
+  holds a whole column. A configuration whose `rows` are not a
+  multiple of N is refused. A generator with `make` alone gives whole
+  tensors on the engine's card, placed as on one chip, and the program
+  slices its shards from them.
+- the placement: each sharded column goes to the program as an Obj
+  whose whole payload is lazy, a DevPending with shape (rows,) whose
+  thunk concatenates the shards on the engine's card, and whose mesh
+  copy is the shards themselves, in the cache that `dev_col_sharded`
+  reads: `meta["dev_sh"] = (mesh.key, shards)`; then
+  `device.put_table` as on one chip. (The program's stats pass forces
+  the thunk: at a size where a whole column does not fit the engine's
+  card, `put_table` fails.)
+- the check: the references get the shard lists of a sharded table,
+  and a mix over one must name reference kinds that take them
+  (`SHARDS = True` in `reference/<kind>.py`, `groupby_shards`);
+  otherwise whole tensors, as on one chip.
+- the clock, trace and peak: after each query, and in set-up, every
+  card of the cell is synchronised; the trace's busy time is the mean
+  over the cell's cards of each card's own busy union
+  (`trace.summarize`, `busy_s_per_card` beside it); idle gaps are
+  stretches where no card works; `memory_peak_bytes` is the fullest
+  card's peak.
+With one chip every number is taken as it was before these rules.
 """
 from __future__ import annotations
 
@@ -73,8 +108,9 @@ def load_cell(workload, bench_path=os.path.join(ROOT, "BENCHMARK.json")):
 
 def cell(bench, root, name, config, traffic, chips=1):
     """A cell of configuration `config` (an entry of `bench`'s configs,
-    its file under `root`) and traffic mix `traffic`, reporting the
-    metrics of `bench` that apply to `name`."""
+    its file under `root`) and traffic mix `traffic` (`portbench/
+    traffic/<traffic>.json` under `root`), reporting the metrics of
+    `bench` that apply to `name`."""
     def applies(m):
         return name in m.get("workloads", [name])
     e2e = [m for m in bench["end_to_end"] if applies(m)]
@@ -83,7 +119,8 @@ def cell(bench, root, name, config, traffic, chips=1):
            m["moves"] in moved]
     cfg = {c["name"]: c for c in bench["configs"]}[config]
     return Cell(name, int(chips), _json(os.path.join(root, cfg["file"])),
-                _json(os.path.join(PB, "traffic", traffic + ".json")),
+                _json(os.path.join(root, "portbench", "traffic",
+                                   traffic + ".json")),
                 e2e, per)
 
 
@@ -106,10 +143,56 @@ def reference(kind):
     return importlib.import_module(f"portbench.reference.{kind}")
 
 
+def generator(config):
+    return importlib.import_module(f"portbench.data.{config['generator']}")
+
+
 def make_tables(config, seed, device):
     """{table: {column: tensor}} made by the configuration's generator."""
-    gen = importlib.import_module(f"portbench.data.{config['generator']}")
-    return gen.make(config, seed, device)
+    return generator(config).make(config, seed, device)
+
+
+def cards(device, n):
+    """The devices of a cell of `n` chips: card i for shard i, or CPU
+    torch for each."""
+    import torch
+    if device == "cuda":
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device(device)] * n
+
+
+def make_shards(config, seed, devices):
+    """{table: {column: [tensor on devices[i]]}} made shard by shard by
+    the configuration's generator: equal row blocks, block i on
+    devices[i]. Raises ValueError for rows that do not split evenly."""
+    n = len(devices)
+    if int(config.get("rows", 0)) % n:
+        raise ValueError(f"{config['rows']} rows do not split into {n} "
+                         f"equal shards")
+    tables = generator(config).make_shards(config, seed, devices)
+    for tname, cols in tables.items():
+        for cname, shards in cols.items():
+            lens = {int(x.shape[0]) for x in shards}
+            where = [str(x.device) for x in shards]
+            if len(shards) != n or len(lens) != 1 or \
+                    where != [str(d) for d in devices]:
+                raise ValueError(f"{tname}.{cname}: shards of rows {lens} "
+                                 f"on {where}, not {n} equal blocks on "
+                                 f"{[str(d) for d in devices]}")
+    return tables
+
+
+def sharded(cell):
+    """Whether the cell's tables are made and placed shard by shard."""
+    return cell.chips > 1 and hasattr(generator(cell.config), "make_shards")
+
+
+def cell_tables(cell, seed, device):
+    """The cell's tables from the seed: shard lists for a sharded cell,
+    else whole tensors on the engine's device."""
+    if sharded(cell):
+        return make_shards(cell.config, seed, cards(device, cell.chips))
+    return make_tables(cell.config, seed, device)
 
 
 # -- the program --------------------------------------------------------------
@@ -124,9 +207,12 @@ def build_kernels():
     return names
 
 
-def place_tables(tensors):
+def place_tables(tensors, mesh=None):
     """The tensors as the program's tables, placed on its device
-    (`engine/device.py` put_table), as `tools/jtables.py` `_table` does."""
+    (`engine/device.py` put_table), as `tools/jtables.py` `_table` does.
+    A column given as a list of shards goes in as the program's mesh
+    copy for `mesh`, its whole payload a thunk that concatenates them
+    on the engine's device (the module's docstring)."""
     import torch
     from rayforce_tpu_torch.core import types as T
     from rayforce_tpu_torch.core.obj import DevPending, Obj, table, vec_sym
@@ -135,13 +221,60 @@ def place_tables(tensors):
     for tname, cols in tensors.items():
         objs = []
         for a in cols.values():
-            c = Obj(T.F64 if a.dtype == torch.float64 else T.I64,
-                    DevPending(a))
-            c.meta = {"dev": a}
+            if isinstance(a, list):
+                rows = sum(int(x.shape[0]) for x in a)
+                c = Obj(T.F64 if a[0].dtype == torch.float64 else T.I64,
+                        DevPending(thunk=lambda a=a, rows=rows:
+                                   _concat(a, rows, dev.device()),
+                                   shape=(rows,)))
+                c.meta = {"dev_sh": (mesh.key, a)}
+            else:
+                c = Obj(T.F64 if a.dtype == torch.float64 else T.I64,
+                        DevPending(a))
+                c.meta = {"dev": a}
             objs.append(c)
         out[tname] = table(vec_sym(list(cols)), objs)
         dev.put_table(out[tname])
     return out
+
+
+def _concat(shards, rows, device):
+    """The shards as one tensor on `device`, each copied into its block."""
+    import torch
+    out = torch.empty(rows, dtype=shards[0].dtype, device=device)
+    at = 0
+    for x in shards:
+        out[at:at + x.shape[0]].copy_(x)
+        at += int(x.shape[0])
+    return out
+
+
+def switch_mesh(chips):
+    """The program's mesh switch for a cell of `chips` cards, set before
+    its first mesh lookup: RAYFORCE_MESH=chips, or none for one chip."""
+    if chips > 1:
+        os.environ["RAYFORCE_MESH"] = str(chips)
+    else:
+        os.environ.pop("RAYFORCE_MESH", None)
+
+
+def check_mesh(cell, device):
+    """The program's mesh, which for a cell of N > 1 chips has to be N
+    shards, shard i on card i (on CPU torch: N shards), and for one chip
+    has to be none; ends the run with no result otherwise."""
+    from rayforce_tpu_torch.engine import device as dev
+    m = dev.mesh()
+    if cell.chips == 1:
+        if m is not None:
+            raise SystemExit(f"{cell.name}: one chip, but the program runs "
+                             f"a mesh of {m.n} shards")
+        return None
+    want = [str(d) for d in cards(device, cell.chips)]
+    got = None if m is None else [str(d) for d in m.devices]
+    if got != want:
+        raise SystemExit(f"{cell.name}: {cell.chips} chips, but the "
+                         f"program's mesh is {got}, not {want}")
+    return m
 
 
 def runtime(tables):
@@ -244,18 +377,33 @@ def run(cell, seed, seconds, trace, device, t0, make_runtime=runtime):
     import torch
     from rayforce_tpu_torch.engine import device as dev
     cuda = device == "cuda"
+    switch_mesh(cell.chips)
     dev.set_device(device)
+    mesh = check_mesh(cell, device)
+    if sharded(cell):
+        kinds = {q["reference"]["kind"] for q in cell.traffic["queries"]}
+        whole = sorted(k for k in kinds
+                       if not getattr(reference(k), "SHARDS", False))
+        if whole:
+            raise SystemExit(f"{cell.name}: its tables are sharded and "
+                             f"the reference kinds {whole} take whole "
+                             f"tables")
     if cuda:
         log("kernels:", ", ".join(build_kernels()))
-    tensors = make_tables(cell.config, seed, device)
-    tables = place_tables(tensors)
+    tensors = cell_tables(cell, seed, device)
+    tables = place_tables(tensors, mesh)
     rt = make_runtime(tables)
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    n_cards = cell.chips if cuda else 0
+
+    def sync():
+        for i in range(n_cards):
+            torch.cuda.synchronize(i)
     for q in cell.traffic["queries"]:
         for _ in range(2):
             force(rt.eval_str(q["text"]))
             sync()
     gc.collect()
+    check_mesh(cell, device)
     readings = Readings(setup_s=time.perf_counter() - t0)
     log(f"set-up {readings.setup_s:.3f} s")
 
@@ -264,7 +412,7 @@ def run(cell, seed, seconds, trace, device, t0, make_runtime=runtime):
     sampler = Sampler(seed)
     attempted, failed = window(rt, cell, seed, seconds, trace, cuda, sync,
                                mods, readings, sampler)
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    peaks = [torch.cuda.max_memory_allocated(i) for i in range(n_cards)]
     # the program's state goes before the reference runs
     del rt, tables
     gc.collect()
@@ -283,10 +431,15 @@ def run(cell, seed, seconds, trace, device, t0, make_runtime=runtime):
            "device": {"platform": "gpu" if cuda else "cpu",
                       "kind": torch.cuda.get_device_name(0) if cuda
                       else "cpu",
-                      "count": cell.chips, "memory_peak_bytes": peak}}
+                      "count": cell.chips,
+                      "memory_peak_bytes": max(peaks, default=0)}}
+    if cuda and n_cards > 1:
+        out["device"]["memory_peak_bytes_per_card"] = peaks
     if trace:
         out["device"].update(busy_s=readings.trace.busy_s,
                              window_s=readings.trace.window_s)
+        if n_cards > 1:
+            out["device"]["busy_s_per_card"] = readings.trace.busy_s_per_card
         out["breakdown"] = {"device_ops": readings.trace.device_ops,
                             "idle_gaps": readings.trace.idle_gaps}
     out["checks"] = {k: {"value": checks[k], "limit": lim}
@@ -302,7 +455,7 @@ def run(cell, seed, seconds, trace, device, t0, make_runtime=runtime):
 def window(rt, cell, seed, seconds, trace, cuda, sync, mods, readings,
            sampler):
     """The closed loop: queries in the mix's order until `seconds` have
-    passed, each result forced and the device synchronised; the
+    passed, each result forced and every card synchronised; the
     readings filled, each result offered to the sampler, and with
     `trace` the profiler's summary. Returns (attempted, failed)."""
     from rayforce_tpu_torch.core import profiler as pprof
@@ -367,7 +520,8 @@ def window(rt, cell, seed, seconds, trace, cuda, sync, mods, readings,
     if trace:
         from . import trace as tr
         t_read = time.perf_counter()
-        readings.trace = tr.summarize(prof, start_ns, end_ns, spans)
+        readings.trace = tr.summarize(prof, start_ns, end_ns, spans,
+                                      range(cell.chips))
         log(f"trace: {len(readings.trace.ops)} device ops, read in "
             f"{time.perf_counter() - t_read:.1f} s")
     return attempted, failed

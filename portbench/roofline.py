@@ -1,7 +1,10 @@
 """A kernel family's share of its byte roofline in a traced window.
 
 share = sum over the family's calls of (bytes the call needs / HBM
-bandwidth) / the family's device time in the trace, in %. Each roofline
+bandwidth) / the family's device time in the trace, in %. On a cell of
+several cards the bytes are summed over the calls on every card and the
+device time over every card's kernels, so the share is against one
+card's bandwidth for each card at work. Each roofline
 metric's file names the family: `ENTRY`, the program's entry point whose
 calls the harness records in the traced run (module, attribute);
 `call_bytes`, with the entry's signature, the bytes one call needs (each

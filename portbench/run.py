@@ -13,6 +13,14 @@ metrics, or with --trace 1 its per-layer ones), `device`, with
 result, where CUDA is absent or has fewer cards than the cell asks
 for, and with another code than 0 where JAX or the JAX package was
 loaded or anything else fails.
+
+A cell of `chips` N > 1 runs on cards 0 to N - 1 as the program's mesh
+of one row shard a card (`RAYFORCE_MESH=N`; a run whose mesh is not
+that ends with no result): its tables made and placed shard by shard
+where its generator defines `make_shards`, every card synchronised
+after each query, `device.busy_s` the mean of the cards' own busy time
+with `busy_s_per_card` beside it, and `memory_peak_bytes` the fullest
+card's, with `memory_peak_bytes_per_card` beside it.
 """
 import time
 

@@ -23,7 +23,9 @@ Per window (all times in ns, over the union of the spans of a kind):
   running: parse, spec, result wrapping, lazy columns.
 Idle time lies outside every device operation of `ctx.trace.ops`, so
 the two idle sums are parts of the window's device idle; the rest of it
-falls outside the program's spans, in the harness's own loop.
+falls outside the program's spans, in the harness's own loop. On a cell
+of several cards `ctx.trace.ops` holds every card's operations, so idle
+here is time in which no card runs one, as the trace's idle gaps are.
 """
 from __future__ import annotations
 

@@ -1,10 +1,13 @@
 """What the device did in a traced window, from torch.profiler's events.
 
-Device busy time is the union of the device's operations (kernels,
-copies, memsets) inside the window; the idle share is 1 - busy / window,
-as `rayforce_tpu_torch/tools/sortprof.py` works it out (there from the
-sum of kernel times, which equals the union on one stream). An idle gap
-is a stretch of the window with no device operation; it is named by the
+A card's busy time is the union of its operations (kernels, copies,
+memsets) inside the window; the window's busy time is the mean of that
+over the cell's cards (`busy_s_per_card` keeps each card's, in card
+order, by the event's `device_index()`; with one card every operation
+is its). The idle share is 1 - busy / window, as
+`rayforce_tpu_torch/tools/sortprof.py` works it out (there from the sum
+of kernel times, which equals the union on one stream). An idle gap is
+a stretch of the window in which no card runs an operation; it is named by the
 query the harness was running and the host event of the trace that
 covers at least half of it (the shortest of equal overlaps), else as
 the host's own code: on the card the trace records the device's
@@ -22,8 +25,11 @@ TOP = 10
 class Trace:
     window_s: float
     busy_s: float = 0.0
+    # each card's busy seconds, in the order of the cards given
+    busy_s_per_card: list = field(default_factory=list)
     kernels: int = 0
-    # (name, start_ns, end_ns) of each device operation in the window
+    # (name, start_ns, end_ns) of each device operation in the window,
+    # on any card
     ops: list = field(default_factory=list)
     # [[name, seconds]]: the device operations that took most time
     device_ops: list = field(default_factory=list)
@@ -41,13 +47,26 @@ def _annotation(e):
     return bool(f()) if f is not None else False
 
 
-def summarize(prof, start_ns, end_ns, spans):
+def _busy(ops):
+    """Sorted, disjoint [start, end] intervals covering sorted ops."""
+    busy = []
+    for _name, s, t in ops:
+        if busy and s <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], t)
+        else:
+            busy.append([s, t])
+    return busy
+
+
+def summarize(prof, start_ns, end_ns, spans, cards=(0,)):
     """A Trace of [start_ns, end_ns] (the host's time.time_ns clock, the
     profiler's own). `spans`: [(start_ns, end_ns, query)] of the
-    harness's queries."""
+    harness's queries; `cards`: the device indices of the cell's
+    cards."""
     from torch.autograd import DeviceType
     tr = Trace(window_s=(end_ns - start_ns) / 1e9)
-    host = []
+    cards = list(cards)
+    host, per_card = [], {c: [] for c in cards}
     # the raw events: no per-event Python object is built beyond what
     # is read here
     for e in prof.profiler.kineto_results.events():
@@ -61,18 +80,20 @@ def summarize(prof, start_ns, end_ns, spans):
         if _annotation(e):
             continue
         name = e.name()
-        tr.ops.append((name, max(s, start_ns), min(t, end_ns)))
+        op = (name, max(s, start_ns), min(t, end_ns))
+        tr.ops.append(op)
+        if len(cards) > 1:
+            per_card.setdefault(e.device_index(), []).append(op)
         tr.kernels += not name.startswith(("Memcpy", "Memset"))
     tr.ops.sort(key=lambda o: o[1])
     by_name = {}
-    busy = []
     for name, s, t in tr.ops:
         by_name[name] = by_name.get(name, 0) + (t - s)
-        if busy and s <= busy[-1][1]:
-            busy[-1][1] = max(busy[-1][1], t)
-        else:
-            busy.append([s, t])
-    tr.busy_s = sum(t - s for s, t in busy) / 1e9
+    busy = _busy(tr.ops)
+    per = [busy] if len(cards) == 1 else \
+        [_busy(sorted(per_card[c], key=lambda o: o[1])) for c in cards]
+    tr.busy_s_per_card = [sum(t - s for s, t in b) / 1e9 for b in per]
+    tr.busy_s = sum(tr.busy_s_per_card) / len(cards)
     tr.device_ops = [[name[:160], ns / 1e9] for name, ns in
                      sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP]]
     gaps, prev = [], start_ns
