@@ -13,6 +13,10 @@ and which device the engine runs on.
 - The mesh (`mesh`, `dev_col_sharded`): with RAYFORCE_MESH=N one
   process drives N row shards of each table (parallel/dist.py), or,
   under RAYFORCE_COORDINATOR, each of P processes drives N / P of them.
+  With one process a table is placed and its stats computed shard by
+  shard (`put_table`), so no card ever holds a whole column: a whole
+  device copy is made only when an engine that is not the mesh's asks
+  for one, and `WHOLE_COPIES` counts those made while a mesh is on.
 - Config: the row threshold for the device path, the dense
   code-space cap (the analogue of the reference's perfect-hash range
   guard, core/index.c:2308-2424), and on a mesh the largest right side
@@ -212,6 +216,11 @@ def mesh_key():
 
 _STATLESS = (T.GUID, T.C8, T.LIST)
 
+# whole-column device copies made while a mesh is on (`dev_col` with
+# `_mesh_state["mesh"]` set): the mesh's own placement and engines make
+# none
+WHOLE_COPIES = {"count": 0}
+
 
 def dev_col(col: Obj) -> torch.Tensor:
     """Device copy of a column's payload, cached on the Obj. A column
@@ -224,6 +233,8 @@ def dev_col(col: Obj) -> torch.Tensor:
     p = col.pending()
     arr = p.arr if p is not None else \
         torch.from_numpy(np.ascontiguousarray(to_np(col))).to(d)
+    if _mesh_state["mesh"] is not None:
+        WHOLE_COPIES["count"] += 1
     if not isinstance(col.meta, dict):
         col.meta = {}
     col.meta["dev"] = arr
@@ -233,10 +244,12 @@ def dev_col(col: Obj) -> torch.Tensor:
 def dev_col_sharded(col: Obj, m) -> list:
     """Row-sharded device copy of a column for mesh `m`: one padded row
     slice per shard (the pipelines mask pad rows by global row id),
-    cached on the Obj for that mesh only. Under a multi-process mesh
-    only this process's shards are placed, sliced from the host column
-    (every process holds the whole table on the host) unless the column
-    is on the device already."""
+    cached on the Obj for that mesh only. A column on the device already
+    (a whole copy, or a DevPending payload, which this forces) is sliced
+    there; any other is sliced from the host column block by block, each
+    block straight onto its shard's device, so no device holds the whole
+    column. Under a multi-process mesh only this process's shards are
+    placed (every process holds the whole table on the host)."""
     if isinstance(col.meta, dict):
         hit = col.meta.get("dev_sh")
         if hit is not None and hit[0] == m.key:
@@ -244,8 +257,7 @@ def dev_col_sharded(col: Obj, m) -> list:
     from ..parallel.dist import shard_rows
     on_dev = col.pending() is not None or (
         isinstance(col.meta, dict) and "dev" in col.meta)
-    src = dev_col(col) if m.world == 1 or on_dev else \
-        np.ascontiguousarray(to_np(col))
+    src = dev_col(col) if on_dev else np.ascontiguousarray(to_np(col))
     shards, _pad = shard_rows(m, src)
     if not isinstance(col.meta, dict):
         col.meta = {}
@@ -264,6 +276,36 @@ _INT_NULL = {torch.int64: int(T.NULL_I64), torch.int32: int(T.NULL_I32),
              torch.int16: int(T.NULL_I16)}
 
 
+def _f64_range(a):
+    """(NaN mask, min, max) of an f64 column, NaNs skipped."""
+    nulls = torch.isnan(a)
+    return nulls, torch.where(nulls, np.inf, a).min(), \
+        torch.where(nulls, -np.inf, a).max()
+
+
+def _int_range(a):
+    """(min, max, has_null) of an integer column as i64 scalars, its
+    type's null skipped."""
+    nv = _INT_NULL.get(a.dtype)
+    x = a.to(torch.int64)
+    if nv is None:
+        return x.min(), x.max(), x.new_zeros(())
+    nulls = a == nv
+    return torch.where(nulls, _I64_MAX, x).min(), \
+        torch.where(nulls, _I64_MIN, x).max(), nulls.any().to(torch.int64)
+
+
+def _on_grid(a, nulls, s):
+    """Whether every non-null value of f64 `a` sits on the decimal grid
+    1/s (within the stats tolerance) and fits i32 scaled: a 0-d bool."""
+    vs = a * s
+    rv = torch.round(vs)
+    err = torch.abs(vs - rv)
+    tol = 1e-7 + torch.abs(vs) * 1e-13
+    return torch.where(
+        nulls, True, (err <= tol) & (torch.abs(rv) <= (1 << 31) - 2)).all()
+
+
 def _k_minmax_all(cols):
     """Per column: a 4-vector (min, max, has_null, qscale) skipping
     nulls/NaNs, f64 for f64 columns and i64 otherwise. has_null lets
@@ -273,35 +315,44 @@ def _k_minmax_all(cols):
     outs = []
     for a in cols:
         if a.dtype == torch.float64:
-            nulls = torch.isnan(a)
-            lo = torch.where(nulls, np.inf, a).min()
-            hi = torch.where(nulls, -np.inf, a).max()
+            nulls, lo, hi = _f64_range(a)
             qscale = a.new_zeros(())
             for s in reversed(QSCALES):
-                vs = a * s
-                rv = torch.round(vs)
-                err = torch.abs(vs - rv)
-                tol = 1e-7 + torch.abs(vs) * 1e-13
-                ok = torch.where(
-                    nulls, True,
-                    (err <= tol) & (torch.abs(rv) <= (1 << 31) - 2)).all()
-                qscale = torch.where(ok, s, qscale)
+                qscale = torch.where(_on_grid(a, nulls, s), s, qscale)
             outs.append(torch.stack(
                 [lo, hi, nulls.any().to(torch.float64), qscale]))
             continue
-        nv = _INT_NULL.get(a.dtype)
-        x = a.to(torch.int64)
-        if nv is not None:
-            nulls = a == nv
-            lo = torch.where(nulls, _I64_MAX, x).min()
-            hi = torch.where(nulls, _I64_MIN, x).max()
-            anyn = nulls.any().to(torch.int64)
-        else:
-            lo = x.min()
-            hi = x.max()
-            anyn = x.new_zeros(())
-        outs.append(torch.stack([lo, hi, anyn, x.new_zeros(())]))
+        lo, hi, anyn = _int_range(a)
+        outs.append(torch.stack([lo, hi, anyn, lo.new_zeros(())]))
     return outs
+
+
+def _k_stat_parts(a):
+    """One shard's part of a column's stats: a 7-vector (min, max,
+    has_null, then for each scale of QSCALES whether the values sit on
+    its grid), f64 for an f64 shard, else i64 with the flags zero.
+    `_combine_parts` makes the whole column's `_k_minmax_all` vector of
+    its shards' parts."""
+    if a.dtype == torch.float64:
+        nulls, lo, hi = _f64_range(a)
+        return torch.stack([lo, hi, nulls.any().to(torch.float64)] + [
+            _on_grid(a, nulls, s).to(torch.float64) for s in QSCALES])
+    lo, hi, anyn = _int_range(a)
+    return torch.cat([torch.stack([lo, hi, anyn]), lo.new_zeros(4)])
+
+
+def _combine_parts(parts, is_f64):
+    """A column's (min, max, has_null, qscale) from its shards' fetched
+    parts: mins by min, maxes by max, nulls by any, grid flags by all;
+    qscale the smallest scale whose flags hold on every shard (0 for
+    none), as `_k_minmax_all` picks it."""
+    lo = min(p[0] for p in parts)
+    hi = max(p[1] for p in parts)
+    anyn = any(p[2] for p in parts)
+    if not is_f64:
+        return [lo, hi, int(anyn), 0]
+    ok = [s for j, s in enumerate(QSCALES) if all(p[3 + j] for p in parts)]
+    return [lo, hi, float(anyn), min(ok, default=0.0)]
 
 
 def _fetch(outs):
@@ -316,8 +367,14 @@ def _fetch(outs):
 
 def put_table(tbl: Obj) -> None:
     """Pre-stage all columns of a table on the device and compute their
-    min/max stats (null/NaN-skipping) with one batched fetch."""
+    min/max stats (null/NaN-skipping) with one batched fetch. Under a
+    mesh of one process, shard by shard (`_put_sharded`)."""
     _, cols = tbl.v
+    m = mesh()
+    if m is not None and m.world == 1 and cols and len(cols[0]):
+        with prof.span("place: shards"):
+            _put_sharded(cols, m)
+        return
     statless = []
     arrs = []
     for c in cols:
@@ -331,6 +388,35 @@ def put_table(tbl: Obj) -> None:
     if arrs:
         for c, lh in zip(statless, _fetch(_k_minmax_all(arrs))):
             _cache_stats(c, lh)
+
+
+def _put_sharded(cols, m) -> None:
+    """put_table under mesh `m` of one process: each column's row shards
+    placed (`dev_col_sharded`; a mesh copy cached for `m` is used as it
+    is), each statted column's stats made from its shards' parts over
+    their real rows, every part fetched in one transfer. Columns with no
+    stats are placed on first use. No device gets a whole column."""
+    parts, owners = [], []
+    for c in cols:
+        if c.t == T.LIST or c.t < 0 or c.t in T.UNPARTED_OF or \
+                c.t in _STATLESS:
+            continue
+        shards = dev_col_sharded(c, m)
+        if isinstance(c.meta, dict) and "range" in c.meta:
+            continue
+        n, per = len(c), int(shards[0].shape[0])
+        for i, sh in enumerate(shards):
+            real = min(max(n - i * per, 0), per)
+            if real:
+                parts.append(_k_stat_parts(sh[:real]).to(shards[0].device))
+                owners.append(c)
+    if not parts:
+        return
+    got: dict = {}
+    for c, p in zip(owners, _fetch(parts)):
+        got.setdefault(id(c), (c, []))[1].append(p)
+    for c, ps in got.values():
+        _cache_stats(c, _combine_parts(ps, c.t == T.F64))
 
 
 def _cache_stats(c, lh):

@@ -30,6 +30,10 @@ process, on its first shard's device. Every sort goes through the
 engine's psort entry, so on the card each is a launch of the CUDA radix
 sort.
 
+Each collective is recorded as the span "mesh: <name>" (core/
+profiler.py), and `moved` counts the bytes it copies from one card to
+another, where `stats` models what a ring would move.
+
 The mesh may span P processes (engine/device.py starts them under
 RAYFORCE_COORDINATOR): each process then holds N / P contiguous shards,
 its per-shard lists hold None at the others', its stages run over its
@@ -40,6 +44,7 @@ and gets the one-process mesh's answer bit for bit.
 """
 from __future__ import annotations
 
+import functools
 import math
 import time
 
@@ -71,6 +76,29 @@ stats = {"exchanged_bytes": 0, "kernel_calls": 0}
 def reset_stats():
     stats["exchanged_bytes"] = 0
     stats["kernel_calls"] = 0
+
+
+# the bytes the in-process collectives copy from one card to another
+# (`_move`): the transfers themselves, where `stats` models a ring's
+moved = {"bytes": 0}
+
+
+def _move(x, device):
+    """x on `device`; a copy from another card counts in `moved`."""
+    if x.device != device and x.device.type == device.type == "cuda":
+        moved["bytes"] += x.numel() * x.element_size()
+    return x.to(device)
+
+
+def _collective(name):
+    """A collective recorded as the span "mesh: <name>"."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*a):
+            with prof.span("mesh: " + name):
+                return fn(*a)
+        return run
+    return wrap
 
 
 # what a multi-process mesh really hands to torch.distributed: calls,
@@ -148,16 +176,22 @@ def make_mesh(n_devices=None, axis="d", device=None, world=1, rank=0,
 def shard_rows(mesh: Mesh, arr, fill=0):
     """Row-shard a host array or tensor over the mesh, padded with
     `fill` to a multiple of the shard count; only this process's shards
-    are placed (None at the others). Returns (per-shard tensors, pad)."""
+    are placed (None at the others), each row block straight from `arr`
+    to its shard's device, so nothing the size of `arr` is made. Returns
+    (per-shard tensors, pad)."""
     t = arr if isinstance(arr, torch.Tensor) else \
         torch.from_numpy(np.ascontiguousarray(arr))
     n = mesh.n
-    pad = (-int(t.shape[0])) % n
-    if pad:
-        t = torch.cat([t, t.new_full((pad,), fill)])
-    per = int(t.shape[0]) // n
-    return [None if d is None else t[i * per:(i + 1) * per].to(d)
-            for i, d in enumerate(mesh.devices)], pad
+    rows = int(t.shape[0])
+    per = -(-rows // n)
+    out = []
+    for i, d in enumerate(mesh.devices):
+        blk = None if d is None else t[i * per:(i + 1) * per]
+        if blk is not None and int(blk.shape[0]) < per:
+            blk = torch.cat([blk, blk.new_full(
+                (per - int(blk.shape[0]),) + tuple(t.shape[1:]), fill)])
+        out.append(None if d is None else blk.to(d))
+    return out, per * n - rows
 
 
 # -- per-shard lists ------------------------------------------------------------
@@ -261,30 +295,34 @@ def _all_shards(xs):
 
 
 def _replicate(x, like):
-    return [None if y is None else x.to(y.device) for y in like]
+    return [None if y is None else _move(x, y.device) for y in like]
 
 
 def _reduce(xs, op):
     allx = _all_shards(xs)
     acc = allx[0]
     for x in allx[1:]:
-        acc = op(acc, x.to(acc.device))
+        acc = op(acc, _move(x, acc.device))
     return _replicate(acc, xs)
 
 
+@_collective("psum")
 def psum(xs):
     """Elementwise sum over shards, in shard order; replicated."""
     return _reduce(xs, torch.add)
 
 
+@_collective("pmin")
 def pmin(xs):
     return _reduce(xs, torch.minimum)
 
 
+@_collective("pmax")
 def pmax(xs):
     return _reduce(xs, torch.maximum)
 
 
+@_collective("all_to_all")
 def all_to_all(xs):
     """xs[s] holds N equal blocks, block d bound for shard d (across
     processes every shard's tensor has one size): out[d] is the blocks
@@ -293,8 +331,8 @@ def all_to_all(xs):
     own = owned(xs)
     if len(own) == n:
         parts = [x.reshape(n, -1) for x in xs]
-        return [torch.cat([parts[s][d].to(xs[d].device) for s in range(n)])
-                for d in range(n)]
+        return [torch.cat([_move(parts[s][d], xs[d].device)
+                           for s in range(n)]) for d in range(n)]
     per = len(own)
     world = n // per
     like = xs[own[0]]
@@ -310,17 +348,19 @@ def all_to_all(xs):
         .reshape(per, n * blk)
     out = [None] * n
     for j, d in enumerate(own):
-        out[d] = got[j].to(xs[d].device)
+        out[d] = _move(got[j], xs[d].device)
     return out
 
 
+@_collective("all_gather")
 def all_gather(xs):
     """Every shard's tensor, concatenated in shard order; replicated."""
     first = here(xs)
-    return _replicate(torch.cat([x.to(first.device)
+    return _replicate(torch.cat([_move(x, first.device)
                                  for x in _all_shards(xs)]), xs)
 
 
+@_collective("rotate")
 def rotate(xs):
     """The ring step: shard d takes shard d - 1's tensor (shard 0 the
     last shard's), on shard d's device. Across processes each rank sends
@@ -329,7 +369,7 @@ def rotate(xs):
     n = len(xs)
     own = owned(xs)
     if len(own) == n:
-        return [xs[d - 1].to(xs[d].device) for d in range(n)]
+        return [_move(xs[d - 1], xs[d].device) for d in range(n)]
     per = len(own)
     world = n // per
     rank = own[0] // per
@@ -345,9 +385,9 @@ def rotate(xs):
             r.reshape(-1), s.reshape(-1), out_splits, splits),
         b, torch.empty_like(b))
     out = [None] * n
-    out[own[0]] = _from_bytes(recv, last, 1)[0].to(xs[own[0]].device)
+    out[own[0]] = _move(_from_bytes(recv, last, 1)[0], xs[own[0]].device)
     for d in own[1:]:
-        out[d] = xs[d - 1].to(xs[d].device)
+        out[d] = _move(xs[d - 1], xs[d].device)
     return out
 
 
@@ -360,7 +400,7 @@ def unshard(xs, n):
     """Row-sharded per-shard tensors as one tensor of their first n rows,
     on this process's first shard's device (every process gets it)."""
     first = here(xs)
-    return torch.cat([x.to(first.device) for x in _all_shards(xs)])[:n]
+    return torch.cat([_move(x, first.device) for x in _all_shards(xs)])[:n]
 
 
 # -- shard-local helpers ------------------------------------------------------
@@ -387,11 +427,16 @@ def _rscan(seg, x, op):
 
 def _rscan_lanes(seg, ops, xs):
     """`_rscan` of each lane xs[i] with its op: the lanes of one op are
-    scanned together, as the columns of one (n, L) scan."""
+    scanned together, as the columns of one (n, L) scan. Each entry of
+    the list `xs` is dropped from it once stacked."""
     out = [None] * len(xs)
     for op in set(ops):
         idx = [i for i, o in enumerate(ops) if o == op]
-        res = _rscan(seg, torch.stack([xs[i] for i in idx], 1), op)
+        stacked = torch.stack([xs[i] for i in idx], 1)
+        for i in idx:
+            xs[i] = None
+        res = _rscan(seg, stacked, op)
+        del stacked
         for j, i in enumerate(idx):
             out[i] = res[:, j]
     return out
@@ -716,7 +761,8 @@ def dist_wide_groupby(mesh: Mesh, rows_local: int, out_cap: int,
     def stage_a(me, codes, lanes):
         """Local sort-agg: the shard's compacted partials (code, count,
         first row, lanes, last row), each placed in its send buffer of
-        n buckets of D rows."""
+        n buckets of D rows. Each temporary of the shard's n rows is
+        dropped once dead (at 2.5e8 rows a shard, 1-2 GB each)."""
         n = int(codes.shape[0])
         dv = codes.device
         pos_bits = max(int(n - 1).bit_length(), 1)
@@ -725,37 +771,48 @@ def dist_wide_groupby(mesh: Mesh, rows_local: int, out_cap: int,
                           (codes << pos_bits) | torch.arange(n, device=dv),
                           KEY_MAX)
         (skey,), _, perm = sort_lex([key], perm=True)
+        del key
         perm = perm.long()
         svals = [x[perm] for x in lanes]
+        del perm
         sc = skey >> pos_bits
         valid = skey != KEY_MAX
         flags = valid & _new_run(sc)
-        is_last = valid & _run_end(sc)
-        seg = torch.cumsum(flags.to(I32) + (~valid).to(I32), 0,
-                           dtype=I32)
-        gid = (skey & posmask) + me * n          # global row id
         tf = _compact_targets(flags, C)
-        tl = _compact_targets(is_last, C)
+        tl = _compact_targets(valid & _run_end(sc), C)
+        pcode = _place(sc, tf, C, -1)
+        del sc
+        gid = (skey & posmask) + me * n          # global row id
+        del skey
+        pfirst = _place(gid, tf, C, KEY_MAX)
+        plast = _place(gid, tl, C, -1) if has_last else None
+        del gid
         iota = torch.arange(n, device=dv)
         start = _place(iota, tf, C, 0)
         end = _place(iota, tl, C, 0)
-        pcode = _place(sc, tf, C, -1)
-        out = [(pcode, -1), (end - start + 1, 0),
-               (_place(gid, tf, C, KEY_MAX), KEY_MAX)]
+        del iota
+        seg = torch.cumsum(flags.to(I32) + (~valid).to(I32), 0,
+                           dtype=I32)
+        del flags, valid
+        out = [(pcode, -1), (end - start + 1, 0), (pfirst, KEY_MAX)]
         scan = [i for i, op in enumerate(lane_ops)
                 if op not in ("first", "last")]
+        ins = [svals[i] for i in scan]
+        for i in scan:
+            svals[i] = None
         red = dict(zip(scan, _rscan_lanes(
-            seg, [lane_ops[i] for i in scan], [svals[i] for i in scan])))
+            seg, [lane_ops[i] for i in scan], ins)))
+        del seg
         for i, (op, sv) in enumerate(zip(lane_ops, svals)):
             if op == "first":
                 v = _place(sv, tf, C, 0.0)
             elif op == "last":
                 v = _place(sv, tl, C, 0.0)
             else:
-                v = _place(red[i], tf, C, 0.0)
+                v = _place(red.pop(i), tf, C, 0.0)
             out.append((v, _LANE_FILL[op]))
         if has_last:
-            out.append((_place(gid, tl, C, -1), -1))
+            out.append((plast, -1))
         live = pcode >= 0
         slot, _ok = _bucket_slots(pcode % n_dev, n_dev, D, live)
         return [_place(x, slot, size, fill) for x, fill in out]
