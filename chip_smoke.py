@@ -9,7 +9,8 @@ Phases, each reported on its own line:
 2. build     build (or load) every CUDA kernel of the port from the
              sources in this checkout, one nvcc for each, all started
              together: the radix sort, the segmented scan, the dense
-             aggregate and the wide engine's key-word kernels;
+             aggregate, the wide engine's key-word kernels and the mesh's
+             stage A kernels;
 3. kernels   each kernel against its plain PyTorch version on the card:
              the radix sort (engine/psort.py) for n in {977, 2^20+3,
              1e7}, 1-3 key words, random / heavily tied / INT32_MAX
@@ -78,7 +79,23 @@ Phases, each reported on its own line:
              a call. One [wide_keys_time] line a step of each plan at
              1e7 rows: kernel ms, the plain version's ms on the card
              (the torch i64 path the kernels replaced), the byte bound
-             and the launches of one call;
+             and the launches of one call. Then the mesh's stage A
+             (parallel/dist.py shard_partials_cuda) against its plain
+             version and a frozen copy of the parent formulas (the row
+             position packed into an i64 key), every send buffer bit for
+             bit, over SHARD_CASES: 1e7 rows on each shard of a 4-shard
+             mesh and 2.5e8 rows (one card's shard of
+             g1_1e9_k100.mesh4), 24-bit and 14-bit codes, 1 and 3 sum
+             lanes, 10% masked rows; then at 1e7 rows two-word codes and
+             all five lane ops over 8 shards; one count a call. One
+             [shard_partials_time] line a dist-group query of that cell
+             at 2.5e8 rows over 4 shards: stage A whole by the kernels,
+             the parent formulas and the plain version (CUDA events,
+             median of 11), the sort and the scans alone on the same
+             rows, the family's byte bound (the codes and lanes read
+             once, the sorted key read twice, the gathered lanes and the
+             send buffers written once), its launches and each path's
+             peak device memory;
 4. main path the db-benchmark G1_1e7_1e2 table (1e7 rows, K=100) made
              on the card from a seeded torch.Generator, and the grouped
              selects of every engine through Runtime().eval_str: bench
@@ -174,8 +191,11 @@ Phases, each reported on its own line:
              mesh run bit for bit. One [mesh_ms] line per query: the
              warm median of 3 exec_ms, the shards, the engine, the
              exchanged bytes and kernel calls of the dist.stats model,
-             the sort launches, the peak device memory of the engine's
-             card and the cards the shards sit on. On one card the 8
+             the sort launches, the stage A kernels' calls (one a shard
+             of each dist-group kernel call, none in another engine; the
+             plain version never runs), the peak device memory of the
+             engine's card and the cards the shards sit on. On one card
+             the 8
              shards exchange through device-local copies: these are not
              a multi-card mesh's times. A [dense_time] line for q4's
              first shard (1.25e6 rows);
@@ -225,9 +245,10 @@ Phases, each reported on its own line:
              joins' and the two ranks' runs; the scan's the same but the
              parted selects'; the dense aggregate's the main path's, the
              parted selects', the mesh selects', the two ranks' and the
-             entry step's; the scan's times are those of its 1e7-row i64
-             sum, the dense aggregate's those of q1), then the result
-             line {"ok": true, "device": {...}}.
+             entry step's; the stage A kernels' the mesh selects'; the
+             scan's times are those of its 1e7-row i64 sum, the dense
+             aggregate's those of q1, stage A's those of q5's shard),
+             then the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the result line. Without a
 CUDA device, or without the rest of the repository beside it, it exits
@@ -680,6 +701,217 @@ def time_wide_keys(W, T, psort, torch, gen):
                 "bound_ms": wide_keys_bytes(ins, outs) / HBM_BYTES_PER_S *
                 1e3,
                 "launches": launches})
+    return out
+
+
+
+# stage A of the mesh's dist-group engine (parallel/dist.py
+# shard_partials): the checked cases, (rows, code space or None for
+# codes up to 2^37 on the two-word key, lane ops, shards), at 1e7 rows
+# and at one card's shard of g1_1e9_k100.mesh4 (2.5e8 rows), 24-bit and
+# 14-bit codes, 1 and 3 lanes; and the timed shapes, each dist-group
+# query of that cell on one card's shard: (code space, lane ops)
+SHARD_ROWS = 250_000_000
+SHARD_CASES = [(n, codes, ("sum",) * lanes, 4)
+               for n in (ROWS, SHARD_ROWS) for codes in (10**7, 10**4)
+               for lanes in (1, 3)] + [
+    (ROWS, None, ("sum", "min", "max", "first", "last"), 8),
+    (ROWS, 10**7, ("max", "first", "sum", "last", "min"), 8)]
+SHARD_TIMES = {"q2": (10**4, ("sum",)), "q3": (10**7, ("sum", "sum")),
+               "q5": (10**7, ("sum",) * 3), "q6": (10**7, ("max", "min"))}
+
+
+def _parent_stage_a(dist, torch, me, codes, lanes, lane_ops, n_dev, D,
+                    n_codes):
+    """dist_wide_groupby's stage A before csrc/shard_partials.cu, frozen:
+    (code << pos_bits) | position sorted as one i64 key, then ~40 torch
+    passes over the rows (the yardstick and a second oracle)."""
+    n = int(codes.shape[0])
+    C = n if n_codes is None else min(n, n_codes)
+    has_last = "last" in lane_ops
+    pos_bits = max(int(n - 1).bit_length(), 1)
+    posmask = (1 << pos_bits) - 1
+    key = torch.where(codes >= 0, (codes << pos_bits) |
+                      torch.arange(n, device=codes.device), dist.KEY_MAX)
+    (skey,), _, perm = dist.sort_lex([key], perm=True)
+    del key
+    perm = perm.long()
+    svals = [x[perm] for x in lanes]
+    del perm
+    sc = skey >> pos_bits
+    valid = skey != dist.KEY_MAX
+    flags = valid & dist._new_run(sc)
+    tf = dist._compact_targets(flags, C)
+    tl = dist._compact_targets(valid & dist._run_end(sc), C)
+    pcode = dist._place(sc, tf, C, -1)
+    del sc
+    gid = (skey & posmask) + me * n
+    del skey
+    pfirst = dist._place(gid, tf, C, dist.KEY_MAX)
+    plast = dist._place(gid, tl, C, -1) if has_last else None
+    del gid
+    iota = torch.arange(n, device=codes.device)
+    start = dist._place(iota, tf, C, 0)
+    end = dist._place(iota, tl, C, 0)
+    del iota
+    seg = torch.cumsum(flags.to(torch.int32) + (~valid).to(torch.int32), 0,
+                       dtype=torch.int32)
+    del flags, valid
+    out = [(pcode, -1), (end - start + 1, 0), (pfirst, dist.KEY_MAX)]
+    scan = [i for i, op in enumerate(lane_ops)
+            if op not in ("first", "last")]
+    ins = [svals[i] for i in scan]
+    for i in scan:
+        svals[i] = None
+    red = dict(zip(scan, dist._rscan_lanes(
+        seg, [lane_ops[i] for i in scan], ins)))
+    del seg
+    for i, (op, sv) in enumerate(zip(lane_ops, svals)):
+        if op == "first":
+            v = dist._place(sv, tf, C, 0.0)
+        elif op == "last":
+            v = dist._place(sv, tl, C, 0.0)
+        else:
+            v = dist._place(red.pop(i), tf, C, 0.0)
+        out.append((v, dist._LANE_FILL[op]))
+    if has_last:
+        out.append((plast, -1))
+    slot, _ok = dist._bucket_slots(pcode % n_dev, n_dev, D, pcode >= 0)
+    return [dist._place(x, slot, n_dev * D, fill) for x, fill in out]
+
+
+def _shard_case(torch, gen, n, n_codes, n_lanes, masked):
+    """A shard's codes (i64; 10% at -1 where `masked`) and f64 lanes."""
+    hi = n_codes if n_codes is not None else 1 << 37
+    codes = torch.randint(0, hi, (n,), generator=gen, device="cuda")
+    if masked:
+        codes[torch.rand(n, generator=gen, device="cuda") < 0.1] = -1
+    lanes = [torch.rand(n, generator=gen, device="cuda",
+                        dtype=torch.float64) * 200 - 100
+             for _ in range(n_lanes)]
+    return codes, lanes
+
+
+def _shard_slots(n, n_codes, n_dev):
+    """dist_wide_groupby's D for a shard of n rows."""
+    C = n if n_codes is None else min(n, n_codes)
+    return C if n_codes is None else max(min(C, -(-n_codes // n_dev)), 1)
+
+
+def _same_bits(torch, got, want, what):
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} buffers, not {len(want)}")
+    for j, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{what}: buffer {j} {g.dtype} "
+                                 f"{tuple(g.shape)}, not {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        if g.dtype == torch.float64:
+            g, w = g.view(torch.int64), w.view(torch.int64)
+        if not torch.equal(g, w):
+            bad = int((g != w).sum())
+            raise AssertionError(f"{what}: buffer {j} differs in {bad} "
+                                 "slots")
+
+
+def check_shard_partials(dist, psort, torch, gen):
+    """Stage A's kernels (dist.shard_partials_cuda) against the plain
+    version and the frozen parent formulas on the card, every send buffer
+    bit for bit, over SHARD_CASES (10% masked rows, each shard of the
+    case's mesh in turn at 1e7 rows, shard 1 at 2.5e8); one count a
+    call. Returns the cases checked."""
+    cases = 0
+    for n, n_codes, ops, n_dev in SHARD_CASES:
+        codes, lanes = _shard_case(torch, gen, n, n_codes, len(ops), True)
+        D = _shard_slots(n, n_codes, n_dev)
+        for me in (range(n_dev) if n == ROWS else (1,)):
+            what = f"shard_partials n={n} codes={n_codes} ops={ops} " \
+                f"shard {me}/{n_dev}"
+            before = psort.LAUNCHES["shard_partials"]
+            got = dist.shard_partials_cuda(me, codes, lanes, ops, n_dev, D,
+                                           n_codes)
+            if psort.LAUNCHES["shard_partials"] != before + 1:
+                raise AssertionError(f"{what}: not one count a call")
+            _same_bits(torch, got, dist.shard_partials_plain(
+                me, codes, lanes, ops, n_dev, D, n_codes), what + " plain")
+            _same_bits(torch, got, _parent_stage_a(
+                dist, torch, me, codes, lanes, ops, n_dev, D, n_codes),
+                what + " parent")
+            if not 0 < int((got[0] >= 0).sum()) <= n_dev * D:
+                raise AssertionError(f"{what}: no partials")
+            del got
+            cases += 1
+        del codes, lanes
+        torch.cuda.empty_cache()
+    return cases
+
+
+def shard_partials_bytes(n, words, scanned, size, outs):
+    """The kernel family's byte bound for one shard: the codes read and
+    the key words written once (keys), the sorted key read twice and the
+    segment ids written once (runs), the permutation and each scanned
+    lane read once and written once (lanes), the send buffers written
+    once (place); the sort and the scan apart."""
+    return (8 * n + 4 * words * n + 2 * 4 * words * n +
+            (4 * n if scanned else 0) + 4 * n + 16 * scanned * n +
+            8 * size * outs)
+
+
+def time_shard_partials(dist, psort, G, torch, gen):
+    """One [shard_partials_time] line a dist-group query of
+    g1_1e9_k100.mesh4 at one card's shard (2.5e8 rows over four shards,
+    no masked rows): CUDA events, median of 11, of stage A whole by the
+    parent formulas, by the plain version and by the kernels; the sort
+    and the segmented scans alone on the same rows; the family's byte
+    bound; its launches a call; each path's peak device memory."""
+    out = []
+    n_dev = 4
+    for name, (n_codes, ops) in SHARD_TIMES.items():
+        codes, lanes = _shard_case(torch, gen, SHARD_ROWS, n_codes,
+                                   len(ops), False)
+        D = _shard_slots(SHARD_ROWS, n_codes, n_dev)
+        args = (1, codes, lanes, ops, n_dev, D, n_codes)
+        peaks = {}
+        for path, fn in (("parent", lambda: _parent_stage_a(
+                dist, torch, *args)),
+                ("plain", lambda: dist.shard_partials_plain(*args)),
+                ("kernel", lambda: dist.shard_partials_cuda(*args))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            peaks[path] = round((torch.cuda.max_memory_allocated() - base) /
+                                1e9, 3)
+        r = {"shape": name, "rows": SHARD_ROWS, "codes": n_codes,
+             "ops": ",".join(ops), "shards": n_dev,
+             "ms": cuda_ms(lambda: dist.shard_partials_cuda(*args)),
+             "parent_ms": cuda_ms(lambda: _parent_stage_a(dist, torch,
+                                                          *args)),
+             "plain_ms": cuda_ms(lambda: dist.shard_partials_plain(*args))}
+        key = torch.where(codes >= 0, codes, n_codes).to(torch.int32)
+        r["sort_ms"] = cuda_ms(lambda: psort.sort_i32([key], 1, perm=True))
+        (skey,), perm = psort.sort_i32([key], 1, perm=True)
+        flags = torch.cat([torch.ones(1, dtype=torch.bool, device="cuda"),
+                           skey[1:] != skey[:-1]])
+        seg = torch.cumsum(flags.to(torch.int32), 0, dtype=torch.int32)
+        del key, skey, flags
+        blocks = {op: torch.rand((SHARD_ROWS, ops.count(op)), generator=gen,
+                                 device="cuda", dtype=torch.float64)
+                  for op in set(ops)}
+        r["scan_ms"] = cuda_ms(lambda: [G._seg_scan(seg, b, op, True)
+                                        for op, b in blocks.items()])
+        del seg, blocks, perm
+        r["family_ms"] = r["ms"] - r["sort_ms"] - r["scan_ms"]
+        r["bound_ms"] = shard_partials_bytes(
+            SHARD_ROWS, 1, len(ops), n_dev * D, 3 + len(ops)) / \
+            HBM_BYTES_PER_S * 1e3
+        # keys, lanes, the three of runs, place
+        r["launches"] = 6
+        r["peak_gb"] = json.dumps(peaks, separators=(",", ":"))
+        out.append(r)
+        del codes, lanes, args
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1294,6 +1526,9 @@ def mesh_path(rows, device, single):
         raise AssertionError(f"device path fell back to the host: {e!r}")
     sel.warn_fallback = no_fallback
 
+    def no_plain(*a):
+        raise AssertionError("stage A ran its plain version on the card")
+
     t0 = time.perf_counter()
     rt = Runtime()
     t = g1_table(rows, device)
@@ -1327,15 +1562,18 @@ def mesh_path(rows, device, single):
 
     os.environ["RAYFORCE_MESH"] = str(MESH_SHARDS)
     dev._mesh_state.update({"mesh": None, "checked": False})
+    plain = dist.shard_partials_plain
+    dist.shard_partials_plain = no_plain
     try:
         m = dev.mesh()
         if m is None or m.n != MESH_SHARDS:
             raise AssertionError(f"no {MESH_SHARDS}-shard mesh: {m}")
         results, per_query, stats, peak = {}, {}, {}, {}
-        scans, scan_per_query = {}, {}
+        scans, scan_per_query, partials = {}, {}, {}
         dense, dense_per_query, shard_call = {}, {}, []
         psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["seg_scan"] = \
-            psort.LAUNCHES["dense_agg"] = 0
+            psort.LAUNCHES["dense_agg"] = \
+            psort.LAUNCHES["shard_partials"] = 0
         for name, q in queries.items():
             before = dict(psort.LAUNCHES)
             dist.reset_stats()
@@ -1359,8 +1597,16 @@ def mesh_path(rows, device, single):
                 before["seg_scan"]
             dense_per_query[name] = psort.LAUNCHES["dense_agg"] - \
                 before["dense_agg"]
+            partials[name] = psort.LAUNCHES["shard_partials"] - \
+                before["shard_partials"]
             if per_query[name] <= 0:
                 raise AssertionError(f"{name}: the CUDA sort never launched")
+            # stage A on every shard of each wide group-by kernel call
+            # (every dist-group query runs one), in no other engine
+            if (partials[name] > 0) != (got == "dist-group") or \
+                    partials[name] % MESH_SHARDS:
+                raise AssertionError(f"{name} ({got}): {partials[name]} "
+                                     "shard_partials calls")
             stats[name] = dict(dist.stats)
             if got in ("spmd", "dist-group") and \
                     stats[name]["kernel_calls"] <= 0:
@@ -1399,11 +1645,13 @@ def mesh_path(rows, device, single):
                   exchanged_bytes=stats[name]["exchanged_bytes"],
                   kernel_calls=stats[name]["kernel_calls"],
                   launches=per_query[name], peak_mb=round(peak[name], 1),
+                  shard_partials=partials[name],
                   equals_single_device=True, bit_identical=True,
                   cards=len(set(m.devices)))
         return launches, per_query, answers, scan_launches, \
-            (dense_launches_, shard_call[0][1])
+            (dense_launches_, shard_call[0][1]), sum(partials.values())
     finally:
+        dist.shard_partials_plain = plain
         os.environ.pop("RAYFORCE_MESH", None)
         dev._mesh_state.update({"mesh": None, "checked": False})
 
@@ -2313,6 +2561,7 @@ def main():
     from rayforce_tpu_torch.core import types as T
     from rayforce_tpu_torch.engine import groupby as G
     from rayforce_tpu_torch.engine import wide as W
+    from rayforce_tpu_torch.parallel import dist
     from rayforce_tpu_torch.tools import denseparts
     from rayforce_tpu_torch.tools.sortprof import seg_scan_shapes
 
@@ -2328,12 +2577,15 @@ def main():
 
     # 2. build: one nvcc for each kernel family, all started together
     t0 = time.perf_counter()
-    cubuild.build(["radix_sort", "seg_scan", "dense_agg", "wide_keys"])
+    cubuild.build(["radix_sort", "seg_scan", "dense_agg", "wide_keys",
+                   "shard_partials"])
     psort._radix_lib()
     G._seg_lib()
     G._dense_lib()
     W._wide_keys_lib()
-    phase("build", kernels="radix_sort,seg_scan,dense_agg,wide_keys",
+    dist._shard_partials_lib()
+    phase("build", kernels="radix_sort,seg_scan,dense_agg,wide_keys,"
+          "shard_partials",
           seconds=round(time.perf_counter() - t0, 3),
           nvcc_seconds=json.dumps(cubuild.build_seconds))
 
@@ -2376,6 +2628,15 @@ def main():
     wide_times = time_wide_keys(W, T, psort, torch, gen)
     for r in wide_times:
         phase("wide_keys_time", **r)
+    t0 = time.perf_counter()
+    shard_cases = check_shard_partials(dist, psort, torch, gen)
+    phase("kernels", shard_partials="equal",
+          sizes=sorted({c[0] for c in SHARD_CASES}), cases=shard_cases,
+          against="plain,parent", max_abs_err=0,
+          seconds=round(time.perf_counter() - t0, 3))
+    shard_times = time_shard_partials(dist, psort, G, torch, gen)
+    for r in shard_times:
+        phase("shard_partials_time", **r)
 
     # 4. the main path at full size
     main_launches, per_query, _ms, shapes, single, main_scans, \
@@ -2427,9 +2688,11 @@ def main():
     # 8. the grouped selects over an 8-shard mesh on the card
     torch.cuda.empty_cache()
     mesh_launches, mesh_per_query, answers, mesh_scans, \
-        (mesh_dense, shard_call) = mesh_path(ROWS, "cuda", single)
+        (mesh_dense, shard_call), mesh_partials = mesh_path(ROWS, "cuda",
+                                                           single)
     phase("mesh_path", launches=mesh_launches, shards=MESH_SHARDS,
           seg_scan_launches=mesh_scans, dense_agg_launches=mesh_dense,
+          shard_partials_calls=mesh_partials,
           per_query=json.dumps(mesh_per_query, separators=(",", ":")))
     r = time_dense(G, psort, torch, "mesh_q4_shard", shard_call)
     dense_times.append(r)
@@ -2467,6 +2730,7 @@ def main():
     main = next(r for r in times if r["shape"] == "sortagg_2w")
     scan = next(r for r in scan_times if r["shape"] == "q5_i64_sum")
     dense = next(r for r in dense_times if r["shape"] == "q1")
+    q5_shard = next(r for r in shard_times if r["shape"] == "q5")
     kernels = [{
         "name": "radix_sort",
         "route": "cuda",
@@ -2524,6 +2788,21 @@ def main():
                         if r["plan"] == "q7"),
         "bound_ms": sum(r["bound_ms"] for r in wide_times
                         if r["plan"] == "q7"),
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "shard_partials",
+        "route": "cuda",
+        "source": "rayforce_tpu_torch/engine/csrc/shard_partials.cu",
+        "replaces": "none: rayforce_tpu/parallel/dist.py "
+                    "dist_wide_groupby's stage A, jnp under jax.jit (the "
+                    "mesh's q5 shard at 2.5e8 rows: keys, lanes, runs, "
+                    "place)",
+        "launches": mesh_partials,
+        "max_abs_err": 0,
+        "ms": q5_shard["ms"],
+        "plain_ms": q5_shard["plain_ms"],
+        "bound_ms": q5_shard["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
     }]

@@ -208,9 +208,10 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs, mesh):
     from ..parallel import dist
     n_dev = mesh.n
     rows_local = (n_rows + n_dev - 1) // n_dev
-    # stage A of dist_wide_groupby packs (code << pos_bits) | pos into
-    # one signed i64; past 62 bits the shift would wrap, so such shapes
-    # take the single-device wide engine, which packs multi-word keys
+    # stage A of dist_wide_groupby sorts the code alone (no row position
+    # in the key), so it no longer needs this bound; the gate only keeps
+    # the shapes past it on the single-device wide engine, as before
+    # stage A's kernels, so that no query changes its route
     code_bits = max(int(n_codes - 1).bit_length(), 1)
     pos_bits = max(int(rows_local - 1).bit_length(), 1)
     if code_bits + pos_bits > 62:

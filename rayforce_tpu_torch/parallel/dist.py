@@ -44,6 +44,7 @@ and gets the one-process mesh's answer bit for bit.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 import time
@@ -54,7 +55,10 @@ import torch.distributed as td
 
 from ..core import profiler as prof
 from ..engine import groupby as G
-from ..engine.psort import f64_from_order, f64_order, sort_lex
+from ..engine import psort
+from ..engine.device import DeviceError
+from ..engine.psort import (LAUNCHES, _LAUNCHES_LOCK, f64_from_order,
+                            f64_order, sort_lex)
 
 I32, I64, F64, BOOL = torch.int32, torch.int64, torch.float64, torch.bool
 KEY_MAX = G.KEY_MAX
@@ -238,7 +242,6 @@ def _wire_call(what, fn, send, recv):
     on one device), staging CUDA buffers through pinned host memory
     unless the backend is NCCL. Returns `recv` on `send`'s device. A
     failed call raises DeviceError: a mesh collective never falls back."""
-    from ..engine.device import DeviceError
     t0 = time.perf_counter()
     dv = send.device
     staged = dv.type == "cuda" and td.get_backend() != "nccl"
@@ -731,6 +734,269 @@ def dist_shuffle_auto(mesh: Mesh, start_capacity: int):
 _LANE_FILL = {"sum": 0.0, "min": float("inf"), "max": float("-inf"),
               "first": 0.0, "last": 0.0}
 
+# Stage A, the shard-local sort-agg: the shard's codes are sorted alone
+# (masked rows at a sentinel past every code; one i32 word where the
+# code space is known and below 2^31 - 1, else the i64 code), and the
+# stable sort's permutation gives each sorted row's position. On the
+# card the hand-written kernels of csrc/shard_partials.cu build the sort
+# key, gather the scanned lanes, find the runs and their send slots, and
+# place the partials into the send buffers (`shard_partials_cuda`); on a
+# CPU tensor `shard_partials_plain` does the same with torch formulas.
+
+# (restype, argtypes) of every extern "C" function of
+# csrc/shard_partials.cu; tests/test_torch_dist.py holds this table, and
+# the constants below, against the source
+_P, _CI32, _CI64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+SHARD_PARTIALS_ARGTYPES = {
+    "rf_shard_partials_keys": (_CI32, [_CI64, _P, _CI64, _CI32, _CI32, _P,
+                                       _P, _CI32, _P, _P, _CI32, _P, _P]),
+    "rf_shard_partials_lanes": (_CI32, [_CI64, _P, _CI32, _P, _P, _CI32, _P,
+                                        _P, _P]),
+    "rf_shard_partials_runs": (_CI32, [_CI64, _P, _P, _CI32, _CI32, _CI64,
+                                       _P, _P, _P, _P, _P, _P]),
+    "rf_shard_partials_place": (_CI32, [_CI64, _CI64, _CI32, _CI64, _P, _P,
+                                        _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _CI32, _P, _P, _P, _P, _P, _P]),
+}
+SP_CHUNK = 4096          # sorted rows a warp takes in `runs`
+SP_MAX_DEV = 1024        # the most buckets (shards) a launch takes
+SP_MAX_LANES = 32        # the most lanes a launch takes
+SP_ROW_LANES = 4         # the most scanned lanes laid side by side
+_I32_MAX = (1 << 31) - 1
+
+_sp_lib = None
+
+
+def _shard_partials_lib():
+    global _sp_lib
+    if _sp_lib is None:
+        from ..engine import cubuild
+        lib = cubuild.load("shard_partials")
+        try:
+            for name, (res, args) in SHARD_PARTIALS_ARGTYPES.items():
+                fn = getattr(lib, name)
+                fn.restype = res
+                fn.argtypes = args
+        except AttributeError as e:
+            raise DeviceError(f"shard partials library: {e}") from e
+        _sp_lib = lib
+    return _sp_lib
+
+
+def _narrow_key(n_codes):
+    """True where the sort key is one i32 word (masked rows at n_codes)."""
+    return n_codes is not None and n_codes < _I32_MAX
+
+
+def _scanned(lane_ops):
+    """{op: the indices of its lanes} for the lanes the segmented scan
+    totals (every op but first and last), in the order of lane_ops."""
+    out: dict = {}
+    for i, op in enumerate(lane_ops):
+        if op not in ("first", "last"):
+            out.setdefault(op, []).append(i)
+    return out
+
+
+def shard_partials_plain(me, codes, lanes, lane_ops, n_dev, D, n_codes):
+    """The plain PyTorch version of `shard_partials_cuda` (the mesh takes
+    it for CPU shards; chip_smoke.py times it on the card as the torch
+    path the kernels replace): the sort-agg formulas over the code sorted
+    alone. Each temporary of the shard's n rows is dropped once dead."""
+    n = int(codes.shape[0])
+    C = n if n_codes is None else min(n, n_codes)
+    has_last = "last" in lane_ops
+    if _narrow_key(n_codes):
+        sentinel = n_codes
+        key = [torch.where(codes >= 0, codes, n_codes).to(I32)]
+    else:
+        sentinel = KEY_MAX
+        key = [torch.where(codes >= 0, codes, KEY_MAX)]
+    (sc,), _, perm = sort_lex(key, perm=True)
+    del key
+    sc = sc.to(I64)
+    perm = perm.long()
+    svals = [x[perm] for x in lanes]
+    valid = sc != sentinel
+    flags = valid & _new_run(sc)
+    tf = _compact_targets(flags, C)
+    tl = _compact_targets(valid & _run_end(sc), C)
+    pcode = _place(sc, tf, C, -1)
+    del sc
+    gid = perm + me * n                      # global row id
+    del perm
+    pfirst = _place(gid, tf, C, KEY_MAX)
+    plast = _place(gid, tl, C, -1) if has_last else None
+    del gid
+    iota = torch.arange(n, device=codes.device)
+    start = _place(iota, tf, C, 0)
+    end = _place(iota, tl, C, 0)
+    del iota
+    seg = torch.cumsum(flags.to(I32) + (~valid).to(I32), 0, dtype=I32)
+    del flags, valid
+    out = [(pcode, -1), (end - start + 1, 0), (pfirst, KEY_MAX)]
+    scan = [i for i, op in enumerate(lane_ops)
+            if op not in ("first", "last")]
+    ins = [svals[i] for i in scan]
+    for i in scan:
+        svals[i] = None
+    red = dict(zip(scan, _rscan_lanes(
+        seg, [lane_ops[i] for i in scan], ins)))
+    del seg
+    for i, (op, sv) in enumerate(zip(lane_ops, svals)):
+        if op == "first":
+            v = _place(sv, tf, C, 0.0)
+        elif op == "last":
+            v = _place(sv, tl, C, 0.0)
+        else:
+            v = _place(red.pop(i), tf, C, 0.0)
+        out.append((v, _LANE_FILL[op]))
+    if has_last:
+        out.append((plast, -1))
+    live = pcode >= 0
+    slot, _ok = _bucket_slots(pcode % n_dev, n_dev, D, live)
+    return [_place(x, slot, n_dev * D, fill) for x, fill in out]
+
+
+def shard_partials_cuda(me, codes, lanes, lane_ops, n_dev, D, n_codes):
+    """Stage A by the kernels of csrc/shard_partials.cu and the engine's
+    radix sort and segmented scan: bit for bit `shard_partials_plain`.
+    The codes and lanes are read in place at their strides. Any failure
+    to build, load, allocate or launch raises DeviceError; shapes and
+    types the kernels do not take raise ValueError before any launch."""
+    n = int(codes.shape[0])
+    dv = codes.device
+    if codes.dtype != I64 or codes.dim() != 1 or \
+            len(lanes) != len(lane_ops) or not 1 <= n_dev <= SP_MAX_DEV or \
+            n >= _I32_MAX or D < 1 or \
+            any(x.dtype != F64 or x.shape != (n,) or x.device != dv
+                for x in lanes) or \
+            any(op not in _LANE_FILL for op in lane_ops):
+        raise ValueError(
+            f"shard_partials: codes {codes.dtype} {tuple(codes.shape)} on "
+            f"{dv}, {n_dev} shards of {D} slots, lanes " + ", ".join(
+                f"{op} {x.dtype} {tuple(x.shape)} on {x.device}"
+                for op, x in zip(lane_ops, lanes)))
+    lib = _shard_partials_lib()
+    narrow = _narrow_key(n_codes)
+    sentinel = n_codes if narrow else 0
+    size = n_dev * D
+    scanned = _scanned(lane_ops)
+    has_last = "last" in lane_ops
+
+    def ptrs(xs, t=ctypes.c_void_p):
+        return (t * max(len(xs), 1))(*xs)
+
+    def call(what, fn, *args):
+        try:
+            with G._card_stream(dv) as stream:
+                rc = fn(*args, stream)
+        except Exception as e:
+            raise DeviceError(f"shard_partials {what}: {type(e).__name__}: "
+                              f"{e}") from e
+        if rc != 0:
+            raise DeviceError(f"shard_partials {what} launch failed: "
+                              f"cudaError {rc}")
+
+    src = [lanes[i] for idx in scanned.values() for i in idx]
+    # two to four scanned lanes side by side, so that the gather reads a
+    # row's lanes in one sector
+    width = 0 if not 2 <= len(src) <= SP_ROW_LANES else \
+        2 if len(src) == 2 else 4
+    rows = torch.empty((n, width), dtype=F64, device=dv) if width else None
+    words = torch.empty((1 if narrow else 2, n), dtype=I32, device=dv)
+    call("keys", lib.rf_shard_partials_keys, n, codes.data_ptr(),
+         codes.stride(0), int(not narrow), sentinel, words[0].data_ptr(),
+         None if narrow else words[1].data_ptr(),
+         len(src) if width else 0, ptrs([x.data_ptr() for x in src]),
+         ptrs([x.stride(0) for x in src], ctypes.c_int64), width,
+         None if rows is None else rows.data_ptr())
+    skey, perm = psort.sort_i32(list(words.unbind(0)), n_keys=len(words),
+                                perm=True)
+    del words
+    hi, lo = skey[0], (None if narrow else skey[1])
+    # the scanned lanes in sorted order, in the (n, L) block an op that
+    # the segmented scan reads
+    blocks = {op: torch.empty((n, len(idx)), dtype=F64, device=dv)
+              for op, idx in scanned.items()}
+    cols = [blocks[op][:, j] for op, idx in scanned.items()
+            for j in range(len(idx))]
+    for b in range(0, len(cols), SP_MAX_LANES):
+        part = range(b, min(b + SP_MAX_LANES, len(cols)))
+        call("lanes", lib.rf_shard_partials_lanes, n, perm.data_ptr(),
+             len(part), ptrs([rows.data_ptr()] if width else
+                             [src[i].data_ptr() for i in part]),
+             ptrs([0] if width else [src[i].stride(0) for i in part],
+                  ctypes.c_int64), width,
+             ptrs([cols[i].data_ptr() for i in part]),
+             ptrs([cols[i].stride(0) for i in part], ctypes.c_int64))
+    # the side-by-side rows go before the scans allocate their outputs
+    del cols, src, rows
+    n_chunks = -(-n // SP_CHUNK)
+    counts = torch.empty((n_dev + 1) * n_chunks, dtype=I32, device=dv)
+    totals = torch.empty(n_dev + 1, dtype=I32, device=dv)
+    seg = torch.empty(n, dtype=I32, device=dv) if scanned else None
+    hrow = torch.empty(size, dtype=I32, device=dv)
+    erow = torch.empty(size, dtype=I32, device=dv)
+    call("runs", lib.rf_shard_partials_runs, n, hi.data_ptr(),
+         None if lo is None else lo.data_ptr(), sentinel, n_dev, D,
+         counts.data_ptr(), totals.data_ptr(),
+         None if seg is None else seg.data_ptr(), hrow.data_ptr(),
+         erow.data_ptr())
+    del counts
+    reds = {}
+    for op in list(blocks):
+        reds[op] = _rscan(seg, blocks.pop(op), op)
+    del seg
+    outs = [torch.empty(size, dtype=I64, device=dv) for _ in range(3)] + \
+        [torch.empty(size, dtype=F64, device=dv) for _ in lane_ops] + \
+        ([torch.empty(size, dtype=I64, device=dv)] if has_last else [])
+    # each lane's values and where place reads them: 0 the scanned total
+    # at the run's first sorted row, 1 and 2 the lane at the first and
+    # last sorted row's origin
+    vals = {}
+    for op, idx in scanned.items():
+        for j, i in enumerate(idx):
+            vals[i] = (reds[op][:, j], 0)
+    for i, op in enumerate(lane_ops):
+        if op in ("first", "last"):
+            vals[i] = (lanes[i], 1 if op == "first" else 2)
+    for b in range(0, max(len(lane_ops), 1), SP_MAX_LANES):
+        part = range(b, min(b + SP_MAX_LANES, len(lane_ops)))
+        ints = [o.data_ptr() for o in outs[:3]] if b == 0 else [None] * 3
+        last = outs[-1].data_ptr() if has_last and b == 0 else None
+        call("place", lib.rf_shard_partials_place, size, D, n_dev, me * n,
+             totals.data_ptr(), hrow.data_ptr(), erow.data_ptr(),
+             hi.data_ptr(), None if lo is None else lo.data_ptr(),
+             perm.data_ptr(), *ints, last, len(part),
+             ptrs([vals[i][0].data_ptr() for i in part]),
+             ptrs([vals[i][0].stride(0) for i in part], ctypes.c_int64),
+             ptrs([vals[i][1] for i in part], ctypes.c_int),
+             ptrs([_LANE_FILL[lane_ops[i]] for i in part], ctypes.c_double),
+             ptrs([outs[3 + i].data_ptr() for i in part]))
+    with _LAUNCHES_LOCK:
+        LAUNCHES["shard_partials"] += 1
+    return outs
+
+
+def shard_partials(me, codes, lanes, lane_ops, n_dev, D, n_codes):
+    """Stage A of `dist_wide_groupby` on shard `me`: its partial groups
+    (code, count, first global row id, one value a lane, and the last
+    global row id where a lane is "last") placed in its send buffers of
+    n_dev buckets of D slots, bucket code % n_dev, the runs of a bucket
+    in code order, each buffer's empty slots at its fill. codes: the
+    shard's n i64 codes (masked rows < 0; below n_codes where that is
+    known); lanes: one f64 lane an op. On a CUDA tensor the hand-written
+    kernels, on a CPU tensor the plain version; nothing in between."""
+    d = codes.device
+    if d.type == "cuda":
+        return shard_partials_cuda(me, codes, lanes, lane_ops, n_dev, D,
+                                   n_codes)
+    if d.type == "cpu":
+        return shard_partials_plain(me, codes, lanes, lane_ops, n_dev, D,
+                                    n_codes)
+    raise DeviceError(f"shard_partials: no stage A for device {d}")
+
 
 def dist_wide_groupby(mesh: Mesh, rows_local: int, out_cap: int,
                       lane_ops=("sum",), n_codes=None):
@@ -756,66 +1022,6 @@ def dist_wide_groupby(mesh: Mesh, rows_local: int, out_cap: int,
     D = C if n_codes is None else max(min(C, -(-n_codes // n_dev)), 1)
     n_lanes = len(lane_ops)
     has_last = "last" in lane_ops
-    size = n_dev * D
-
-    def stage_a(me, codes, lanes):
-        """Local sort-agg: the shard's compacted partials (code, count,
-        first row, lanes, last row), each placed in its send buffer of
-        n buckets of D rows. Each temporary of the shard's n rows is
-        dropped once dead (at 2.5e8 rows a shard, 1-2 GB each)."""
-        n = int(codes.shape[0])
-        dv = codes.device
-        pos_bits = max(int(n - 1).bit_length(), 1)
-        posmask = (1 << pos_bits) - 1
-        key = torch.where(codes >= 0,
-                          (codes << pos_bits) | torch.arange(n, device=dv),
-                          KEY_MAX)
-        (skey,), _, perm = sort_lex([key], perm=True)
-        del key
-        perm = perm.long()
-        svals = [x[perm] for x in lanes]
-        del perm
-        sc = skey >> pos_bits
-        valid = skey != KEY_MAX
-        flags = valid & _new_run(sc)
-        tf = _compact_targets(flags, C)
-        tl = _compact_targets(valid & _run_end(sc), C)
-        pcode = _place(sc, tf, C, -1)
-        del sc
-        gid = (skey & posmask) + me * n          # global row id
-        del skey
-        pfirst = _place(gid, tf, C, KEY_MAX)
-        plast = _place(gid, tl, C, -1) if has_last else None
-        del gid
-        iota = torch.arange(n, device=dv)
-        start = _place(iota, tf, C, 0)
-        end = _place(iota, tl, C, 0)
-        del iota
-        seg = torch.cumsum(flags.to(I32) + (~valid).to(I32), 0,
-                           dtype=I32)
-        del flags, valid
-        out = [(pcode, -1), (end - start + 1, 0), (pfirst, KEY_MAX)]
-        scan = [i for i, op in enumerate(lane_ops)
-                if op not in ("first", "last")]
-        ins = [svals[i] for i in scan]
-        for i in scan:
-            svals[i] = None
-        red = dict(zip(scan, _rscan_lanes(
-            seg, [lane_ops[i] for i in scan], ins)))
-        del seg
-        for i, (op, sv) in enumerate(zip(lane_ops, svals)):
-            if op == "first":
-                v = _place(sv, tf, C, 0.0)
-            elif op == "last":
-                v = _place(sv, tl, C, 0.0)
-            else:
-                v = _place(red.pop(i), tf, C, 0.0)
-            out.append((v, _LANE_FILL[op]))
-        if has_last:
-            out.append((plast, -1))
-        live = pcode >= 0
-        slot, _ok = _bucket_slots(pcode % n_dev, n_dev, D, live)
-        return [_place(x, slot, size, fill) for x, fill in out]
 
     def stage_c(recv):
         """Merge one shard's received partials into its groups."""
@@ -858,8 +1064,10 @@ def dist_wide_groupby(mesh: Mesh, rows_local: int, out_cap: int,
         return gout, torch.clamp(my_ng - out_cap, min=0).reshape(1)
 
     def kernel(codes, *lanes):
-        sends = smap(lambda me, c: stage_a(me, c, [ln[me] for ln in lanes]),
-                     codes)
+        # stage A
+        sends = smap(lambda me, c: shard_partials(
+            me, c, [ln[me] for ln in lanes], lane_ops, n_dev, D, n_codes),
+            codes)
         recvs = [all_to_all(pick(sends, j))
                  for j in range(len(here(sends)))]
         merged = smap(lambda d, _c: stage_c([r[d] for r in recvs]), codes)

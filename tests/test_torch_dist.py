@@ -18,6 +18,7 @@ from rayforce_tpu.engine import groupby as RG
 from rayforce_tpu.parallel import dist as R
 from rayforce_tpu_torch.engine import psort
 from rayforce_tpu_torch.parallel import dist as D
+from test_torch_wide import _at
 
 torch.set_num_threads(1)
 
@@ -415,3 +416,349 @@ def test_dist_kernels_sort_through_the_psort_entry(meshes, monkeypatch):
     assert calls
     import inspect
     assert "torch.sort" not in inspect.getsource(D)
+
+
+# -- stage A of dist_wide_groupby: the kernels' path and the plain one ------
+
+def _parent_stage_a(me, codes, lanes, lane_ops, n_dev, rows_local, n_codes):
+    """dist_wide_groupby's stage A as it was before csrc/shard_partials.cu,
+    frozen as the oracle: (code << pos_bits) | position sorted as one i64
+    key, then the torch formulas."""
+    C = rows_local if n_codes is None else min(rows_local, n_codes)
+    D_ = C if n_codes is None else max(min(C, -(-n_codes // n_dev)), 1)
+    size = n_dev * D_
+    has_last = "last" in lane_ops
+    n = int(codes.shape[0])
+    pos_bits = max(int(n - 1).bit_length(), 1)
+    posmask = (1 << pos_bits) - 1
+    key = torch.where(codes >= 0, (codes << pos_bits) | torch.arange(n),
+                      D.KEY_MAX)
+    (skey,), _, perm = D.sort_lex([key], perm=True)
+    perm = perm.long()
+    svals = [x[perm] for x in lanes]
+    sc = skey >> pos_bits
+    valid = skey != D.KEY_MAX
+    flags = valid & D._new_run(sc)
+    tf = D._compact_targets(flags, C)
+    tl = D._compact_targets(valid & D._run_end(sc), C)
+    pcode = D._place(sc, tf, C, -1)
+    gid = (skey & posmask) + me * n
+    pfirst = D._place(gid, tf, C, D.KEY_MAX)
+    plast = D._place(gid, tl, C, -1) if has_last else None
+    iota = torch.arange(n)
+    start = D._place(iota, tf, C, 0)
+    end = D._place(iota, tl, C, 0)
+    seg = torch.cumsum(flags.to(torch.int32) + (~valid).to(torch.int32), 0,
+                       dtype=torch.int32)
+    out = [(pcode, -1), (end - start + 1, 0), (pfirst, D.KEY_MAX)]
+    scan = [i for i, op in enumerate(lane_ops)
+            if op not in ("first", "last")]
+    red = dict(zip(scan, D._rscan_lanes(
+        seg, [lane_ops[i] for i in scan], [svals[i] for i in scan])))
+    for i, (op, sv) in enumerate(zip(lane_ops, svals)):
+        if op == "first":
+            v = D._place(sv, tf, C, 0.0)
+        elif op == "last":
+            v = D._place(sv, tl, C, 0.0)
+        else:
+            v = D._place(red.pop(i), tf, C, 0.0)
+        out.append((v, D._LANE_FILL[op]))
+    if has_last:
+        out.append((plast, -1))
+    live = pcode >= 0
+    slot, _ok = D._bucket_slots(pcode % n_dev, n_dev, D_, live)
+    return [D._place(x, slot, size, fill) for x, fill in out], D_
+
+
+_U64 = np.uint64
+_KEY_MAX_WORDS = _U64(0x7FFFFFFF7FFFFFFF)
+
+
+class _PartialsModel:
+    """A model of csrc/shard_partials.cu behind its C interface: it reads
+    and writes the tensors' memory at the pointers the wrapper passes,
+    chunk by chunk as the `runs` launches count, offset and place."""
+
+    def __init__(self, rc=0):
+        self.rc = rc
+        self.calls = []
+
+    def rf_shard_partials_keys(self, n, codes, stride, wide, sentinel, hi,
+                               lo, n_lanes, src, src_stride, width, rows,
+                               stream):
+        self.calls.append(("keys", stream))
+        if n_lanes:
+            r = _at(rows, _U64, n * width).reshape(n, width)
+            r[:] = 0
+            for i in range(n_lanes):
+                r[:, i] = _at(src[i], _U64, n, src_stride[i])
+        c = _at(codes, np.int64, n, stride)
+        if wide:
+            v = np.where(c >= 0, c, D.KEY_MAX).view(_U64)
+            _at(hi, np.uint32, n)[:] = v >> _U64(32)
+            _at(lo, np.uint32, n)[:] = \
+                v.astype(np.uint32) ^ np.uint32(0x80000000)
+        else:
+            _at(hi, np.int32, n)[:] = np.where(c >= 0, c, sentinel)
+        return self.rc
+
+    def rf_shard_partials_lanes(self, n, perm, n_lanes, src, src_stride,
+                                width, dst, dst_stride, stream):
+        self.calls.append(("lanes", stream))
+        p = _at(perm, np.int32, n)
+        rows = _at(src[0], _U64, n * width).reshape(n, width) if width \
+            else None
+        for i in range(n_lanes):
+            _at(dst[i], _U64, n, dst_stride[i])[:] = rows[p, i] if width \
+                else _at(src[i], _U64, n, src_stride[i])[p]
+        return self.rc
+
+    def _key(self, n, hi, lo):
+        """The sorted key's rows as 64-bit patterns (equal keys, equal
+        patterns)."""
+        h = _at(hi, np.uint32, n).astype(_U64)
+        return h if lo is None else \
+            (h << _U64(32)) | _at(lo, np.uint32, n).astype(_U64)
+
+    @staticmethod
+    def _code(k, lo):
+        """The codes of the key patterns k."""
+        if lo is None:
+            return k.astype(np.uint32).view(np.int32).astype(np.int64)
+        return ((k >> _U64(32)) << _U64(32) |
+                ((k & _U64(0xFFFFFFFF)) ^ _U64(0x80000000))).view(np.int64)
+
+    def rf_shard_partials_runs(self, n, hi, lo, sentinel, n_dev, D_, counts,
+                               totals, seg, hrow, erow, stream):
+        self.calls.append(("runs", stream))
+        k = self._key(n, hi, lo)
+        valid = k != (_KEY_MAX_WORDS if lo is not None
+                      else _U64(sentinel & 0xFFFFFFFF))
+        head = valid & np.r_[True, k[1:] != k[:-1]]
+        end = valid & np.r_[k[1:] != k[:-1], True]
+        bk = np.where(valid, self._code(k, lo) % n_dev, -1)
+        chunk = np.arange(n) // D.SP_CHUNK
+        n_chunks = -(-n // D.SP_CHUNK)
+        cnt = np.zeros((n_dev + 1, n_chunks), np.int64)
+        np.add.at(cnt, (bk[head], chunk[head]), 1)
+        inc = head.astype(np.int64) + ~valid
+        np.add.at(cnt[n_dev], chunk, inc)
+        off = np.cumsum(cnt, 1) - cnt              # exclusive, a row each
+        _at(counts, np.int32, (n_dev + 1) * n_chunks)[:] = off.reshape(-1)
+        _at(totals, np.int32, n_dev + 1)[:] = cnt.sum(1)
+        first = np.arange(n_chunks) * D.SP_CHUNK
+
+        def within(x):
+            """x's inclusive prefix count inside each row's chunk."""
+            cs = np.cumsum(x)
+            return cs - (cs - x)[first][chunk]
+
+        if seg is not None:
+            _at(seg, np.int32, n)[:] = off[n_dev][chunk] + within(inc)
+        hr, er = _at(hrow, np.int32, n_dev * D_), _at(erow, np.int32,
+                                                      n_dev * D_)
+        for b in range(n_dev):
+            hb = head & (bk == b)
+            rank = off[b][chunk] + within(hb.astype(np.int64)) - 1
+            for rows, buf in ((hb, hr), (end & (bk == b), er)):
+                keep = rows & (rank < D_)
+                buf[b * D_ + rank[keep]] = np.nonzero(keep)[0]
+        return self.rc
+
+    def rf_shard_partials_place(self, size, D_, n_dev, base, totals, hrow,
+                                erow, hi, lo, perm, code, count, first,
+                                last, n_lanes, src, stride, at, fill, dst,
+                                stream):
+        self.calls.append(("place", stream))
+        s = np.arange(size)
+        b = s // D_
+        live = s - b * D_ < _at(totals, np.int32, n_dev + 1)[b]
+        h = np.where(live, _at(hrow, np.int32, size), 0)
+        e = np.where(live, _at(erow, np.int32, size), 0)
+        rows = int(max(h.max(initial=0), e.max(initial=0))) + 1
+        p = _at(perm, np.int32, rows).astype(np.int64)
+        if code is not None:
+            c = self._code(self._key(rows, hi, lo), lo)
+            _at(code, np.int64, size)[:] = np.where(live, c[h], -1)
+            _at(count, np.int64, size)[:] = np.where(live, e - h + 1, 0)
+            _at(first, np.int64, size)[:] = np.where(live, p[h] + base,
+                                                     D.KEY_MAX)
+        if last is not None:
+            _at(last, np.int64, size)[:] = np.where(live, p[e] + base, -1)
+        for i in range(n_lanes):
+            row = h if at[i] == 0 else p[h] if at[i] == 1 else p[e]
+            n_src = int(row.max(initial=0)) + 1
+            v = _at(src[i], _U64, n_src, stride[i])[row]
+            _at(dst[i], _U64, size)[:] = np.where(
+                live, v, np.float64(fill[i]).view(_U64))
+        return self.rc
+
+
+@pytest.fixture
+def partials_model(monkeypatch):
+    import contextlib
+    lib = _PartialsModel()
+    monkeypatch.setattr(D, "_sp_lib", lib)
+    monkeypatch.setattr(D.G, "_card_stream",
+                        lambda device: contextlib.nullcontext(4321))
+    return lib
+
+
+STAGE_A_KEYS = {"i32": 3000, "i64": None, "i64_known": 1 << 40}
+
+
+def _stage_a_case(n_dev, key, skewed, seed):
+    """Per shard (me, codes, lanes) of n_dev shards of 10 000 rows (three
+    chunks of the kernels' runs): 10% masked, codes below 3000 (spread
+    over 2^40 for the i64 keys), with `skewed` 60% on one code; lanes
+    with +-0.0 and +-inf among their values."""
+    rng = np.random.default_rng(seed)
+    per = 10_000
+    codes = rng.integers(0, 3000, n_dev * per).astype(np.int64)
+    if skewed:
+        codes[rng.random(codes.size) < 0.6] = 137
+    if key != "i32":
+        codes = codes * 366_503_875 + 11      # distinct codes up to ~2^40
+    codes[rng.random(codes.size) < 0.1] = -1
+    lanes = [rng.uniform(-50, 50, codes.size) for _ in range(5)]
+    lanes[0][::97] = np.inf
+    lanes[1][::89] = -np.inf
+    lanes[2][::83] = -0.0
+    lanes[3][::79] = 0.0
+    return [(me, torch.from_numpy(codes[me * per:(me + 1) * per].copy()),
+             [torch.from_numpy(x[me * per:(me + 1) * per].copy())
+              for x in lanes]) for me in range(n_dev)], per
+
+
+def _bits_equal(got, want, what):
+    assert len(got) == len(want), what
+    for j, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, j)
+        if g.dtype == torch.float64:
+            g, w = g.view(torch.int64), w.view(torch.int64)
+        assert torch.equal(g, w), (what, j)
+
+
+@pytest.mark.parametrize("n_dev", [4, 8])
+@pytest.mark.parametrize("key", list(STAGE_A_KEYS))
+@pytest.mark.parametrize("skewed", [False, True])
+def test_stage_a_send_buffers_equal_the_parent_formulas(
+        partials_model, n_dev, key, skewed):
+    """Stage A's send buffers from the code sorted alone equal the
+    position-packed formulas' bit for bit, for the plain version and for
+    the CUDA wrapper through a model of the kernels (keys, lanes, runs,
+    place: one call each, one count a shard): every shard, 10% masked
+    rows, the lanes sum, min, max, first and last together."""
+    n_codes = STAGE_A_KEYS[key]
+    ops = ("sum", "min", "max", "first", "last")
+    shards, per = _stage_a_case(n_dev, key, skewed, 40 + n_dev)
+    before = psort.LAUNCHES["shard_partials"]
+    for me, codes, lanes in shards:
+        want, D_ = _parent_stage_a(me, codes, lanes, ops, n_dev, per,
+                                   n_codes)
+        live = int((want[0] >= 0).sum())
+        assert 0 < live < n_dev * D_
+        _bits_equal(D.shard_partials(me, codes, lanes, ops, n_dev, D_,
+                                     n_codes), want, ("plain", me))
+        assert partials_model.calls == []
+        _bits_equal(D.shard_partials_cuda(me, codes, lanes, ops, n_dev, D_,
+                                          n_codes), want, ("kernel", me))
+        assert partials_model.calls == [(s, 4321) for s in (
+            "keys", "lanes", "runs", "place")]
+        del partials_model.calls[:]
+    assert psort.LAUNCHES["shard_partials"] == before + n_dev
+
+
+@pytest.mark.parametrize("ops", [
+    ("sum", "sum", "last"),                      # two lanes side by side
+    ("min",),                                    # one lane, read alone
+    ("sum",) * 3 + ("max", "first", "min")])     # five, read one by one
+def test_stage_a_lane_routes_equal_the_parent_formulas(partials_model, ops):
+    """The lanes' other routes through the kernel model: two scanned lanes
+    laid side by side in 16-byte rows, one lane gathered alone, five
+    gathered one by one; bit for bit the parent formulas' buffers."""
+    shards, per = _stage_a_case(4, "i32", False, 7)
+    for me, codes, lanes in shards[:2]:
+        lanes = (lanes * 2)[:len(ops)]
+        want, D_ = _parent_stage_a(me, codes, lanes, ops, 4, per, 3000)
+        _bits_equal(D.shard_partials_cuda(me, codes, lanes, ops, 4, D_,
+                                          3000), want, ("kernel", me, ops))
+        _bits_equal(D.shard_partials_plain(me, codes, lanes, ops, 4, D_,
+                                           3000), want, ("plain", me, ops))
+
+
+def test_dist_wide_groupby_through_the_kernel_model(meshes, partials_model,
+                                                    monkeypatch):
+    """The whole distributed group-by with stage A through the CUDA
+    wrapper and the kernel model gives the reference's answer: every lane
+    kind, wide and narrow keys."""
+    monkeypatch.setattr(D, "shard_partials", D.shard_partials_cuda)
+    rng = np.random.default_rng(12)
+    per = 700
+    n = N_DEV * per
+    codes = rng.integers(0, 900, n).astype(np.int64)
+    codes[rng.random(n) < 0.1] = -1
+    va = rng.uniform(-50, 50, n)
+    ops = ("sum", "min", "max", "first", "last")
+    for n_codes in (None, 900):
+        del partials_model.calls[:]
+        _wide(meshes, codes, [va] * 5, ops, per, n_codes)
+        assert [c for c, _s in partials_model.calls].count("runs") == N_DEV
+
+
+def test_shard_partials_dispatch_and_faults(partials_model):
+    """A CPU tensor takes the plain version (no launch), another device
+    raises DeviceError; a failed launch raises DeviceError, and inputs the
+    kernels do not take ValueError, before any launch."""
+    from rayforce_tpu_torch.engine.device import DeviceError
+    codes = torch.arange(50, dtype=torch.int64) % 7
+    lanes = [torch.ones(50, dtype=torch.float64)]
+    before = psort.LAUNCHES["shard_partials"]
+    D.shard_partials(0, codes, lanes, ("sum",), 4, 2, 7)
+    assert partials_model.calls == [] and \
+        psort.LAUNCHES["shard_partials"] == before
+    with pytest.raises(DeviceError):
+        D.shard_partials(0, torch.empty(8, dtype=torch.int64, device="meta"),
+                         [], (), 4, 2, 7)
+    for bad in [
+            (codes.to(torch.int32), lanes, ("sum",), 4),
+            (codes, [lanes[0].float()], ("sum",), 4),
+            (codes, [lanes[0][:10]], ("sum",), 4),
+            (codes, lanes, ("sum", "sum"), 4),
+            (codes, lanes, ("median",), 4),
+            (codes, lanes, ("sum",), D.SP_MAX_DEV + 1)]:
+        with pytest.raises(ValueError):
+            D.shard_partials_cuda(0, bad[0], bad[1], bad[2], bad[3], 2, 7)
+    assert partials_model.calls == []
+    partials_model.rc = 700
+    with pytest.raises(DeviceError, match="cudaError 700"):
+        D.shard_partials_cuda(0, codes, lanes, ("sum",), 4, 2, 7)
+    assert psort.LAUNCHES["shard_partials"] == before
+
+
+def test_shard_partials_argtypes_match_the_cuda_source():
+    """dist.py's ctypes table against every extern "C" signature of
+    csrc/shard_partials.cu, pointer versus 64-bit versus 32-bit int at
+    every position; the chunk and the limits against the source's."""
+    import ctypes
+    import os
+    import re
+    from test_torch_psort import _extern_c_signatures
+
+    def kind(t):
+        if t is ctypes.c_void_p:
+            return "ptr"
+        return "i64" if ctypes.sizeof(t) == 8 else "i32"
+
+    sigs = _extern_c_signatures("shard_partials")
+    assert set(sigs) == set(D.SHARD_PARTIALS_ARGTYPES)
+    for name, (res, args) in D.SHARD_PARTIALS_ARGTYPES.items():
+        assert sigs[name] == (kind(res), [kind(a) for a in args]), name
+    src = open(os.path.join(os.path.dirname(psort.__file__), "csrc",
+                            "shard_partials.cu")).read()
+    for const in ("SP_CHUNK", "SP_MAX_DEV", "SP_MAX_LANES", "SP_ROW_LANES"):
+        assert re.search(rf"#define {const} (\d+)", src).group(1) == \
+            str(getattr(D, const)), const
+    # no kernel name that another family's roofline reader would count
+    assert not re.search(r"\b(hist|plan|pass|identity|gather|small)_kernel"
+                         r"\b|seg_scan::|wide_keys::", src)
