@@ -23,7 +23,7 @@ from rayforce_tpu_torch.engine import device as dev
 from rayforce_tpu_torch.engine import groupby as G
 from rayforce_tpu_torch.engine import psort
 from rayforce_tpu_torch.engine import select as sel
-from test_torch_sortagg import _runtimes
+from test_torch_sortagg import _runtimes, null_groups
 
 torch.set_num_threads(1)
 
@@ -86,9 +86,11 @@ def parity():
     v3 = rng.uniform(-50, 100, N)
     v3[rng.integers(0, N, 40)] = np.nan
     big = rng.integers(-2**62, 2**62, N).astype(np.int64)
+    n1, n3 = null_groups(rng, id3)
     return _runtimes({"id1": (id1, "I64"), "id3": (id3, "I64"),
                       "v1": (v1, "I64"), "v2": (v2, "I32"),
-                      "v3": (v3, "F64"), "big": (big, "I64")})
+                      "v3": (v3, "F64"), "big": (big, "I64"),
+                      "n1": (n1, "I64"), "n3": (n3, "F64")})
 
 
 # tests/test_device_parity.py QUERIES on the dense plan (<=512 codes and
@@ -109,6 +111,20 @@ DENSE = [
     "(select {mn: (min v1) mx: (max v3) m: (med v3) f: (first v3) "
     "from: t})",
     "(select {s: (sum v2) from: t by: {id1: id1 r: (% v2 7)}})",
+    # groups whose values are all null (r 0) and partly null (r 1): a
+    # nullable i64, a nullable f64, derived exprs
+    "(select {s: (sum n1) a: (avg n1) mn: (min n1) mx: (max n1) "
+    "f: (first n1) l: (last n1) c: (count n1) from: t "
+    "by: {id1: id1 r: (% id3 5)}})",
+    "(select {s: (sum n3) a: (avg n3) mn: (min n3) mx: (max n3) "
+    "f: (first n3) l: (last n3) c: (count n3) from: t "
+    "by: {id1: id1 r: (% id3 5)}})",
+    "(select {s: (sum (+ n1 v2)) a: (avg (+ n1 v2)) mn: (min (+ n1 v2)) "
+    "mx: (max (+ n1 v2)) c: (count n1) from: t "
+    "by: {id1: id1 r: (% id3 5)}})",
+    "(select {s: (sum (* n3 2.0)) a: (avg (* n3 2.0)) "
+    "mn: (min (* n3 2.0)) mx: (max (* n3 2.0)) from: t "
+    "by: {id1: id1 r: (% id3 5)}})",
 ]
 
 

@@ -33,7 +33,7 @@ from rayforce_tpu_torch.engine import join as ejoin
 from rayforce_tpu_torch.engine import select as sel
 from rayforce_tpu_torch.parallel import dist as pdist
 from test_device_fuzz import _mk_query, _mk_table
-from test_torch_sortagg import _runtimes
+from test_torch_sortagg import _runtimes, null_groups
 
 torch.set_num_threads(1)
 
@@ -218,9 +218,11 @@ def wide_tables():
     nf[rng.random(n) < 0.5] = np.nan
     ni = rng.integers(-20, 20, n).astype(np.int64)
     ni[rng.random(n) < 0.5] = T.NULL_I64
+    n1, n3 = null_groups(rng, k1)
     return _runtimes({"k1": (k1, "I64"), "k2": (k2, "I64"),
                       "v": (v, "F64"), "w": (w, "I64"), "nf": (nf, "F64"),
-                      "ni": (ni, "I64")})
+                      "ni": (ni, "I64"), "n1": (n1, "I64"),
+                      "n3": (n3, "F64")})
 
 
 WIDE = [
@@ -248,6 +250,16 @@ WIDE = [
     "by: {k1: k1 k2: k2}})",
     "(select {s: (sum (+ w ni)) mn: (min (* ni 3)) a: (avg (- w ni)) "
     "from: t by: k1})",
+    # groups whose values are all null (k1 % 5 == 0) and partly null
+    # (k1 % 5 == 1): a nullable i64, a nullable f64, derived exprs
+    "(select {s: (sum n1) a: (avg n1) mn: (min n1) mx: (max n1) "
+    "f: (first n1) l: (last n1) c: (count n1) from: t by: k1})",
+    "(select {s: (sum n3) a: (avg n3) mn: (min n3) mx: (max n3) "
+    "f: (first n3) l: (last n3) c: (count n3) from: t by: k1})",
+    "(select {s: (sum (+ n1 w)) a: (avg (+ n1 w)) mn: (min (+ n1 w)) "
+    "mx: (max (+ n1 w)) c: (count n1) from: t by: k1})",
+    "(select {s: (sum (* n3 2.0)) a: (avg (* n3 2.0)) "
+    "mn: (min (* n3 2.0)) mx: (max (* n3 2.0)) from: t by: k1})",
 ]
 
 

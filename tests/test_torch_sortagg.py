@@ -68,6 +68,16 @@ PARITY = [
     "(< v1 4))})",
     "(select {c: (count v1) from: t by: id3 where: (within v3 "
     "[0.0 50.0])})",
+    # groups whose values are all null (id3 % 5 == 0) and partly null
+    # (id3 % 5 == 1): a nullable i64, a nullable f64, derived exprs
+    "(select {s: (sum n1) a: (avg n1) mn: (min n1) mx: (max n1) "
+    "f: (first n1) l: (last n1) c: (count n1) from: t by: id3})",
+    "(select {s: (sum n3) a: (avg n3) mn: (min n3) mx: (max n3) "
+    "f: (first n3) l: (last n3) c: (count n3) from: t by: id3})",
+    "(select {s: (sum (+ n1 v2)) a: (avg (+ n1 v2)) mn: (min (+ n1 v2)) "
+    "mx: (max (+ n1 v2)) c: (count n1) from: t by: id3})",
+    "(select {s: (sum (* n3 2.0)) a: (avg (* n3 2.0)) "
+    "mn: (min (* n3 2.0)) mx: (max (* n3 2.0)) from: t by: id3})",
 ]
 
 
@@ -127,6 +137,19 @@ def _check(rrt, prt, q):
         dev.set_enabled(True)
     assert p == r, f"{q}\nPORT:\n{p}\nREFERENCE:\n{r}"
     assert p == h, f"{q}\nPORT DEVICE:\n{p}\nPORT HOST:\n{h}"
+
+
+def null_groups(rng, key):
+    """(n1, n3): a nullable i64 and a nullable f64 column whose values are
+    all null in the groups of `key` % 5 == 0 and every other row null in
+    those of `key` % 5 == 1."""
+    n = len(key)
+    n1 = rng.integers(-9, 9, n).astype(np.int64)
+    n3 = rng.uniform(-20, 20, n)
+    gone = (key % 5 == 0) | ((key % 5 == 1) & (np.arange(n) % 2 == 1))
+    n1[gone] = T.NULL_I64
+    n3[gone] = np.nan
+    return n1, n3
 
 
 def _mk(rng, n, card, keys=None):
@@ -256,9 +279,11 @@ def parity():
     v3 = rng.uniform(-50, 100, N)
     v3[rng.integers(0, N, 40)] = np.nan
     big = rng.integers(-2**62, 2**62, N).astype(np.int64)
+    n1, n3 = null_groups(rng, id3)
     return _runtimes({"id1": (id1, "I64"), "id3": (id3, "I64"),
                       "v1": (v1, "I64"), "v2": (v2, "I32"),
-                      "v3": (v3, "F64"), "big": (big, "I64")})
+                      "v3": (v3, "F64"), "big": (big, "I64"),
+                      "n1": (n1, "I64"), "n3": (n3, "F64")})
 
 
 @pytest.mark.parametrize("q", PARITY)

@@ -37,7 +37,7 @@ from rayforce_tpu_torch.engine import wide
 from rayforce_tpu_torch.engine.device import DeviceError
 from test_torch_dense import _check
 from test_torch_psort import _extern_c_signatures
-from test_torch_sortagg import _runtimes
+from test_torch_sortagg import _runtimes, null_groups
 
 torch.set_num_threads(1)
 
@@ -126,6 +126,50 @@ def test_wide_engine_matches_host():
     try:
         _wide(rrt, prt, "(select {s: (sum v3) c: (count v1) from: t by: "
                         "{id1: id1 id3: id3}})")
+    finally:
+        rdev._cfg["dense_max"], dev._cfg["dense_max"] = old
+
+
+# groups whose values are all null (id3 % 5 == 0) and partly null
+# (id3 % 5 == 1): a nullable i64, a nullable f64, derived exprs
+NULL_GROUPS = [
+    "(select {s: (sum n1) a: (avg n1) mn: (min n1) mx: (max n1) "
+    "f: (first n1) l: (last n1) c: (count n1) from: t "
+    "by: {id1: id1 id3: id3}})",
+    "(select {s: (sum n3) a: (avg n3) mn: (min n3) mx: (max n3) "
+    "f: (first n3) l: (last n3) c: (count n3) from: t "
+    "by: {id1: id1 id3: id3}})",
+    "(select {s: (sum (+ n1 v2)) a: (avg (+ n1 v2)) mn: (min (+ n1 v2)) "
+    "mx: (max (+ n1 v2)) c: (count n1) from: t by: {id1: id1 id3: id3}})",
+    "(select {s: (sum (* n3 2.0)) a: (avg (* n3 2.0)) "
+    "mn: (min (* n3 2.0)) mx: (max (* n3 2.0)) from: t "
+    "by: {id1: id1 id3: id3}})",
+]
+
+
+@pytest.fixture(scope="module")
+def null_tables():
+    """tests/test_device_parity.py's key columns with null_groups'
+    columns over id3."""
+    rng = np.random.default_rng(42)
+    N = 4000
+    id1 = rng.integers(0, 7, N).astype(np.int64)
+    id3 = rng.integers(0, 1200, N).astype(np.int64)
+    v2 = rng.integers(0, 100, N).astype(np.int32)
+    n1, n3 = null_groups(rng, id3)
+    return _runtimes({"id1": (id1, "I64"), "id3": (id3, "I64"),
+                      "v2": (v2, "I32"), "n1": (n1, "I64"),
+                      "n3": (n3, "F64")})
+
+
+@pytest.mark.parametrize("q", NULL_GROUPS)
+def test_wide_null_groups_match_reference(null_tables, q):
+    """dense_max forced to 512 in both packages, so 7 x 1200 codes go
+    wide."""
+    old = (rdev._cfg["dense_max"], dev._cfg["dense_max"])
+    rdev._cfg["dense_max"] = dev._cfg["dense_max"] = 512
+    try:
+        _wide(*null_tables, q)
     finally:
         rdev._cfg["dense_max"], dev._cfg["dense_max"] = old
 
