@@ -306,46 +306,28 @@ def _on_grid(a, nulls, s):
         nulls, True, (err <= tol) & (torch.abs(rv) <= (1 << 31) - 2)).all()
 
 
-def _k_minmax_all(cols):
-    """Per column: a 4-vector (min, max, has_null, qscale) skipping
-    nulls/NaNs, f64 for f64 columns and i64 otherwise. has_null lets
-    query plans drop per-group null-count work; qscale (f64 columns
-    only; 0 = none) is the smallest decimal grid the values provably
-    sit on, enabling i32 sort operands."""
-    outs = []
-    for a in cols:
-        if a.dtype == torch.float64:
-            nulls, lo, hi = _f64_range(a)
-            qscale = a.new_zeros(())
-            for s in reversed(QSCALES):
-                qscale = torch.where(_on_grid(a, nulls, s), s, qscale)
-            outs.append(torch.stack(
-                [lo, hi, nulls.any().to(torch.float64), qscale]))
-            continue
-        lo, hi, anyn = _int_range(a)
-        outs.append(torch.stack([lo, hi, anyn, lo.new_zeros(())]))
-    return outs
-
-
 def _k_stat_parts(a):
-    """One shard's part of a column's stats: a 7-vector (min, max,
-    has_null, then for each scale of QSCALES whether the values sit on
-    its grid), f64 for an f64 shard, else i64 with the flags zero.
-    `_combine_parts` makes the whole column's `_k_minmax_all` vector of
-    its shards' parts."""
+    """The stats part of a column, or of one shard of it: a 7-vector
+    (min, max, has_null, then for each scale of QSCALES whether the
+    values sit on its grid), skipping nulls/NaNs, f64 for f64 values,
+    else i64 with the flags zero. `_combine_parts` makes the column's
+    stats of its parts."""
     if a.dtype == torch.float64:
         nulls, lo, hi = _f64_range(a)
         return torch.stack([lo, hi, nulls.any().to(torch.float64)] + [
             _on_grid(a, nulls, s).to(torch.float64) for s in QSCALES])
     lo, hi, anyn = _int_range(a)
-    return torch.cat([torch.stack([lo, hi, anyn]), lo.new_zeros(4)])
+    z = lo.new_zeros(())
+    return torch.stack([lo, hi, anyn, z, z, z, z])
 
 
 def _combine_parts(parts, is_f64):
-    """A column's (min, max, has_null, qscale) from its shards' fetched
-    parts: mins by min, maxes by max, nulls by any, grid flags by all;
-    qscale the smallest scale whose flags hold on every shard (0 for
-    none), as `_k_minmax_all` picks it."""
+    """A column's (min, max, has_null, qscale) from its fetched parts
+    (one for a whole column, one a shard): mins by min, maxes by max,
+    nulls by any, grid flags by all. has_null lets query plans drop
+    per-group null work; qscale (f64 columns only; 0 = none) is the
+    smallest decimal grid the values provably sit on, which lets them
+    ride sorts as exact i32 operands."""
     lo = min(p[0] for p in parts)
     hi = max(p[1] for p in parts)
     anyn = any(p[2] for p in parts)
@@ -386,8 +368,8 @@ def put_table(tbl: Obj) -> None:
             statless.append(c)
             arrs.append(a)
     if arrs:
-        for c, lh in zip(statless, _fetch(_k_minmax_all(arrs))):
-            _cache_stats(c, lh)
+        for c, p in zip(statless, _fetch([_k_stat_parts(a) for a in arrs])):
+            _cache_stats(c, _combine_parts([p], c.t == T.F64))
 
 
 def _put_sharded(cols, m) -> None:
@@ -430,7 +412,8 @@ def _cache_stats(c, lh):
 
 def _ensure_stats(col: Obj):
     if not (isinstance(col.meta, dict) and "range" in col.meta):
-        lh = _fetch(_k_minmax_all([dev_col(col)]))[0]
+        lh = _combine_parts(_fetch([_k_stat_parts(dev_col(col))]),
+                            col.t == T.F64)
         if not isinstance(col.meta, dict):
             col.meta = {}
         _cache_stats(col, lh)

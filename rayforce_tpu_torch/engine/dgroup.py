@@ -22,7 +22,8 @@ over the mesh instead of on one device:
   partial kernel by first-row ids.
 
 Unsupported shapes fall back to the single-device sort-agg and wide
-plans (still correct: their columns are not sharded).
+plans (still correct: their columns are not sharded). The null rules and
+result types are engine/aggs.py's.
 """
 from __future__ import annotations
 
@@ -33,11 +34,10 @@ import torch
 
 from ..core import profiler as prof
 from ..core import types as T
-from ..core.obj import Obj, table, DevPendingSliced
+from ..core.obj import DevPendingSliced
+from . import aggs as A
 from . import device as dev
-from .exprc import as_tensor, torch_dtype
-
-SUM_OUT = {T.U8: T.I64, T.I16: T.I64, T.I32: T.I32, T.I64: T.I64}
+from .aggs import tdt
 
 _NUMERIC = (T.U8, T.I16, T.I32, T.I64, T.F64)
 
@@ -47,22 +47,6 @@ I64, F64 = torch.int64, torch.float64
 class _DPlan:
     __slots__ = ("mesh", "run_kernel", "run_med", "col_objs",
                  "key_meta", "aggs", "n_rows", "agg_lane", "lane_ops")
-
-
-def _tdt(rt):
-    return torch_dtype(T.DTYPE[rt])
-
-
-def _nulls(raw, rtype):
-    """The null predicate on typed values (int sentinels of
-    core/types.py NULL_BY_TYPE, widened before the compare; f64 nulls
-    are NaN)."""
-    if rtype == T.F64:
-        return torch.isnan(raw)
-    nv = T.NULL_BY_TYPE.get(rtype)
-    if nv is None:
-        return torch.zeros(raw.shape, dtype=torch.bool, device=raw.device)
-    return raw.to(I64) == int(nv)
 
 
 def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs, mesh):
@@ -79,7 +63,6 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs, mesh):
     med_exprs: list = []    # value exprs for the median shuffle kernel
     med_of: dict = {}       # col id -> median lane index
     agg_lane: dict = {}     # agg position -> lane-role dict or None
-    nullable: dict = {}     # col id -> bool
     for ai, a in enumerate(aggs):
         if a.name == "count":
             agg_lane[ai] = None
@@ -96,10 +79,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs, mesh):
         lo = hi = None
         if plain:
             try:
-                col = a.inner.cols[0].col
-                if cid not in nullable:
-                    nullable[cid] = bool(dev.column_has_null(col))
-                lo, hi = dev.column_range(col)
+                lo, hi = dev.column_range(a.inner.cols[0].col)
                 if a.inner.rtype != T.F64:
                     reach = max(abs(int(lo)), abs(int(hi)))
                     # all lanes are f64: sums need exactness over the
@@ -135,7 +115,6 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs, mesh):
                     if a.name in ("sum", "avg") else (1 << 53)
                 if reach >= lim:
                     return None
-            nullable[cid] = True     # null-detect on computed values
 
         def lane(op, tf):
             lk = (op, cid, tf)
@@ -145,13 +124,10 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs, mesh):
                 lane_exprs.append((a.inner, tf))
             return lane_of[lk]
 
-        nul = nullable[cid]
+        nul = A.may_null(a)
         if a.name == "sum":
             roles = {"v": lane("sum", "null0" if nul else "raw")}
-            if nul and plain:
-                # plain sum PROPAGATES nulls (aggr.c ADD accumulators);
-                # a DERIVED expression's per-group sum SKIPS them
-                # (oracle-pinned): no flag lane
+            if A.sum_propagates(a, nul):
                 roles["anynull"] = lane("max", "isnull")
         elif a.name == "avg":
             roles = {"v": lane("sum", "null0" if nul else "raw")}
@@ -161,8 +137,6 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs, mesh):
             roles = {"v": lane("min", "mininf" if nul else "raw")}
             if nul:
                 roles["anyval"] = lane("max", "notnull")
-                # derived min all-null -> typed NULL, not INF
-                roles["plain"] = plain
         elif a.name == "max":
             roles = {"v": lane("max", "maxninf" if nul else "raw")}
             if nul:
@@ -187,23 +161,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs, mesh):
                 roles["nn"] = lane("sum", "notnull")
         agg_lane[ai] = roles
 
-    col_objs: list = []
-    slot_of: dict = {}
-
-    def assign(ck):
-        mapping = []
-        for ref in ck.cols:
-            key = id(ref.col)
-            if key not in slot_of:
-                slot_of[key] = len(col_objs)
-                col_objs.append(ref.col)
-            mapping.append(slot_of[key])
-        return mapping
-
-    w_map = assign(cw) if cw is not None else None
-    key_maps = [assign(ck) for ck in key_cs]
-    lane_maps = [assign(e) for e, _tf in lane_exprs]
-    med_maps = [assign(e) for e, _tf in med_exprs]
+    slots = A.Slots(cw, key_cs, [e for e, _tf in lane_exprs + med_exprs])
 
     from ..parallel import dist
     n_dev = mesh.n
@@ -219,40 +177,30 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs, mesh):
 
     plan = _DPlan()
     plan.mesh = mesh
-    plan.col_objs = col_objs
+    plan.col_objs = slots.cols
     plan.key_meta = key_meta
     plan.aggs = aggs
     plan.n_rows = n_rows
     plan.agg_lane = agg_lane
     plan.lane_ops = tuple(lane_ops)
 
-    def make_builder(exprs, maps):
+    def make_builder(exprs):
         """Per-shard builder: codes (i64, -1 = masked or padding)
         followed by one f64 lane per (expr, transform) pair."""
         def builder(me, cols):
-            def sub_env(mapping):
-                return [cols[i] for i in mapping]
-
             nl = int(cols[0].shape[0]) if cols else rows_local
             d = cols[0].device if cols else dev.device()
             mask = me * rows_local + torch.arange(nl, device=d) < n_rows
             if cw is not None:
-                mask = mask & as_tensor(cw.fn(sub_env(w_map))).to(
-                    d, torch.bool)
-            codes = None
-            for ck, mp, (_nm, lo, rng, _rt, _dom) in zip(
-                    key_cs, key_maps, key_meta):
-                cc = as_tensor(ck.fn(sub_env(mp))).to(d, I64) - int(lo)
-                codes = cc if codes is None else codes * int(rng) + cc
-            if codes is None:
-                codes = torch.zeros(nl, dtype=I64, device=d)
-            codes = torch.where(mask, codes.expand(nl), -1)
+                mask = mask & slots.eval(cw, cols).to(d, torch.bool)
+            codes = torch.where(mask, A.key_codes(
+                slots, cols, key_cs, key_meta, nl, d, I64), -1)
 
-            def mk_lane(e, tf, mp):
-                raw = as_tensor(e.fn(sub_env(mp))).to(d).expand(nl)
+            def mk_lane(e, tf):
+                raw = slots.eval(e, cols).to(d).expand(nl)
                 if tf == "raw":
                     return raw.to(F64)
-                nul = _nulls(raw, e.rtype)
+                nul = A.null_mask(raw, e.rtype)
                 if tf == "isnull":
                     return nul.to(F64)
                 if tf == "notnull":
@@ -266,9 +214,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs, mesh):
                         "mininf": math.inf, "maxninf": -math.inf}[tf]
                 return torch.where(nul, fill, v)
 
-            lanes = [mk_lane(e, tf, mp)
-                     for (e, tf), mp in zip(exprs, maps)]
-            return [codes] + lanes
+            return [codes] + [mk_lane(e, tf) for e, tf in exprs]
         return builder
 
     def shard_inputs(builder, cols):
@@ -278,7 +224,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs, mesh):
                 else None for me in range(n_dev)]
         return [dist.pick(outs, j) for j in range(len(dist.here(outs)))]
 
-    code_builder = make_builder(lane_exprs, lane_maps)
+    code_builder = make_builder(lane_exprs)
     # the per-shard ownership bound ceil(n_codes / n) tightens the merge
     # capacity for dense-ish spaces; wide spaces keep the row bound and
     # the doubling retry
@@ -305,7 +251,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs, mesh):
     plan.run_kernel = run_kernel
 
     if med_exprs:
-        med_builder = make_builder(med_exprs, med_maps)
+        med_builder = make_builder(med_exprs)
         n_med = len(med_exprs)
         mcaps = [max(2 * rows_local // n_dev, 64),
                  max(2 * rows_local // n_dev, 64)]
@@ -352,89 +298,36 @@ def run(plan: _DPlan):
         # ids, so its lanes align with the partial exchange's positions
         omeds = plan.run_med(cols)[2:]
 
-    out_names: list[int] = []
-    out_cols: list[Obj] = []
-    muls = []
-    m_ = 1
-    for _nm, _lo, rng, _rt, _dom in reversed(plan.key_meta):
-        muls.append(m_)
-        m_ *= rng
-    muls.reverse()
-    for (nm, lo, rng, rt, dom), mul in zip(plan.key_meta, muls):
-        vals = torch.div(ocode, int(mul), rounding_mode="floor") \
-            % int(rng) + int(lo)
-        out_names.append(nm)
-        if dom is not None:
-            out_cols.append(Obj(T.ENUM, DevPendingSliced(vals, ng),
-                                domain=dom))
-        elif rt == T.SYMBOL:
-            out_cols.append(Obj(T.SYMBOL, DevPendingSliced(vals, ng)))
-        else:
-            out_cols.append(Obj(rt, DevPendingSliced(vals.to(_tdt(rt)),
-                                                     ng)))
-
+    out_cols = [A.key_obj(km, DevPendingSliced(v.to(tdt(km[3])), ng))
+                for km, v in zip(plan.key_meta,
+                                 A.key_values(ocode, plan.key_meta))]
     for ai, a in enumerate(plan.aggs):
-        out_names.append(a.sid)
         roles = plan.agg_lane[ai]
         lane = olanes[roles["v"]] if roles is not None \
             and "v" in roles else None
-        rt = a.inner.rtype if a.name != "count" else T.I64
+        rt = a.inner.rtype
         if a.name == "count":
-            col = Obj(T.I64, DevPendingSliced(ocnt.to(I64), ng))
+            v = ocnt.to(I64)
         elif a.name == "med":
-            col = Obj(T.F64, DevPendingSliced(omeds[roles["med"]], ng))
-        elif a.name == "avg":
+            v = omeds[roles["med"]]
+        elif a.name in ("avg", "dev"):
             e = olanes[roles["nn"]] if "nn" in roles else ocnt.to(F64)
-            col = Obj(T.F64, DevPendingSliced(
-                torch.where(e == 0, math.nan, lane / e), ng))
-        elif a.name == "dev":
-            e = olanes[roles["nn"]] if "nn" in roles else ocnt.to(F64)
-            safe = torch.where(e == 0, 1.0, e)
-            mean = lane / safe
-            var = olanes[roles["v2"]] / safe - mean * mean
-            v = torch.sqrt(torch.clamp(var, min=0.0))
-            col = Obj(T.F64, DevPendingSliced(
-                torch.where(e == 0, math.nan, v), ng))
+            v = A.avg(lane, e) if a.name == "avg" else \
+                A.stddev(lane, olanes[roles["v2"]], e)
         elif a.name in ("first", "last"):
             # int null sentinels round-trip the f64 lane exactly
-            col = Obj(rt, DevPendingSliced(
-                lane if rt == T.F64 else lane.to(_tdt(rt)), ng))
+            v = lane.to(tdt(rt))
         elif a.name in ("min", "max"):
-            # all-null groups: plain grouped min keeps the typed INF
-            # init (aggr.c:1241), plain grouped max yields typed NULL
             empty = (olanes[roles["anyval"]] == 0) \
                 if "anyval" in roles else None
-            if rt == T.F64:
-                if empty is not None and (
-                        a.name == "max" or not roles.get("plain", True)):
-                    lane = torch.where(empty, math.nan, lane)
-                # plain f64 min: all-null stays +inf (typed INF)
-                col = Obj(T.F64, DevPendingSliced(lane, ng))
-            else:
-                # the sentinel replaces the cast's value: f64 -> int of
-                # an infinity is not defined
-                li = lane.to(_tdt(rt))
-                if empty is not None:
-                    sent = np.iinfo(T.DTYPE[rt]).max \
-                        if a.name == "min" and roles.get("plain", True) \
-                        else T.NULL_BY_TYPE.get(rt, T.NULL_I64)
-                    li = torch.where(empty, int(sent), li)
-                col = Obj(rt, DevPendingSliced(li, ng))
-        elif rt == T.F64:       # f64 sum: plain sums PROPAGATE nulls
-            if "anynull" in roles:
-                lane = torch.where(olanes[roles["anynull"]] > 0,
-                                   math.nan, lane)
-            col = Obj(T.F64, DevPendingSliced(lane, ng))
+            # the sentinel replaces the cast's value: f64 -> int of an
+            # infinity is not defined
+            v = A.minmax_nulls(lane.to(tdt(rt)), empty, a, rt)
         else:
-            ot = SUM_OUT.get(rt, T.I64)
             # exact while |sum| < 2^53 (the f64 exchange lane); columns
             # of larger reach are declined by build_plan
-            li = lane.to(_tdt(ot))
+            v = lane.to(tdt(A.result_type(a)))
             if "anynull" in roles:
-                li = torch.where(olanes[roles["anynull"]] > 0,
-                                 int(T.NULL_BY_TYPE.get(ot, T.NULL_I64)),
-                                 li)
-            col = Obj(ot, DevPendingSliced(li, ng))
-        out_cols.append(col)
-    return table(Obj(T.SYMBOL, np.asarray(out_names, dtype=np.int64)),
-                 out_cols)
+                v = A.sum_nulls(v, olanes[roles["anynull"]], rt)
+        out_cols.append(A.agg_obj(a, DevPendingSliced(v, ng)))
+    return A.result_table(plan.key_meta, plan.aggs, out_cols)

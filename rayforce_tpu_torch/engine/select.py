@@ -23,11 +23,13 @@ on every shard's rows with its partial lanes combined across shards
 select beyond 512 codes (or with `dev`) runs over the mesh through
 engine/dgroup.py when its shape is covered.
 Aggregate null semantics are oracle-pinned (tools/oracle.py against the
-reference binary): GROUPED sum PROPAGATES nulls (ADD accumulators)
-while a no-by select sums whole-vector and SKIPS them; avg skips;
-min/max skip nulls with all-null groups yielding the typed INF sentinel
-(min) or the typed null (max); count counts all rows. Group order is
-first-appearance (core/index.c group-id assignment). Plans are cached
+reference binary) and engine/aggs.py owns them, with the rest of what
+the aggregates of every engine become (slots, sort operands, result
+types): GROUPED sum PROPAGATES nulls (ADD accumulators) while a no-by
+select sums whole-vector and SKIPS them; avg skips; min/max skip nulls
+with all-null groups yielding the typed INF sentinel (min) or the typed
+null (max); count counts all rows. Group order is first-appearance
+(core/index.c group-id assignment). Plans are cached
 by a structural fingerprint of the query AST and the identity of the
 source table.
 """
@@ -42,9 +44,11 @@ import torch
 from ..core import profiler as prof
 from ..core import symbols
 from ..core import types as T
-from ..core.obj import Obj, to_np, table, enum_domain
+from ..core.obj import Obj, to_np, enum_domain
+from . import aggs as A
 from . import device as dev
 from . import groupby as G
+from .aggs import INT_LIKE, NARROW32
 from .exprc import as_tensor, compile_expr, split_aggregate
 from .psort import argsort, sort_by_code
 
@@ -55,13 +59,8 @@ _plan_cache: dict = {}
 # (chrono.h:62-81, printed per REPL eval in app/repl.c:76)
 last_profile: dict = {}
 
-INT_LIKE = (T.B8, T.U8, T.I16, T.I32, T.I64, T.DATE, T.TIME,
-            T.TIMESTAMP, T.SYMBOL)
-# host-parity result types (ops/math.py SUM_TYPE, oracle-pinned)
-SUM_OUT = {T.U8: T.I64, T.I16: T.I64, T.I32: T.I32, T.I64: T.I64}
 MINMAX_OK = (T.B8, T.U8, T.I16, T.I32, T.I64, T.DATE, T.TIME,
              T.TIMESTAMP, T.F64)
-NARROW = (T.B8, T.U8, T.I16, T.I32, T.DATE, T.TIME)  # fits an i32 lane
 F64_EXACT = 1 << 53
 
 I32, I64, F64 = torch.int32, torch.int64, torch.float64
@@ -104,21 +103,11 @@ class _Plan:
                  "lanes_meta", "spmd")
 
 
-def _null_mask(arr, rtype):
-    if rtype == T.F64:
-        return torch.isnan(arr)
-    nv = T.NULL_BY_TYPE.get(rtype)
-    if nv is None:
-        return torch.zeros(arr.shape, dtype=torch.bool, device=arr.device)
-    # widen first: torch would wrap the i64 sentinel to a narrower dtype
-    return arr.to(I64) == int(nv)
-
-
 def _minmax_payload(arr, rtype, is_min):
     """Value with nulls mapped to the losing extreme (reference skips
     nulls in MIN/MAX, ops.h:180-190). f64 stays in value space; ints
     are widened to i64."""
-    nulls = _null_mask(arr, rtype)
+    nulls = A.null_mask(arr, rtype)
     if rtype == T.F64:
         return torch.where(nulls, np.inf if is_min else -np.inf, arr)
     return torch.where(nulls, G.KEY_MAX if is_min else G.I64_MIN,
@@ -261,35 +250,7 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
     code). `grouped`: the select has a `by` (grouped sum PROPAGATES
     nulls, aggr.c ADD accumulators; a no-by select sums whole-vector
     and SKIPS them)."""
-    # --- shared column slots ---------------------------------------------
-    col_objs = []
-    slot_of = {}
-
-    def assign(ck):
-        mapping = []
-        for ref in ck.cols:
-            key = id(ref.col)
-            if key not in slot_of:
-                slot_of[key] = len(col_objs)
-                col_objs.append(ref.col)
-            mapping.append(slot_of[key])
-        return mapping
-
-    w_map = assign(cw) if cw is not None else None
-    key_maps = [assign(ck) for ck in key_cs]
-    agg_maps = {id(a.inner): assign(a.inner) for a in aggs}
-
-    def may_null(a):
-        """False only for a plain column whose cached stats prove it
-        null-free — lets the plan drop the null-count lane."""
-        if not a.meta.get("plain_col"):
-            return True
-        try:
-            return dev.column_has_null(a.inner.cols[0].col)
-        except Exception as e:
-            if dev.is_fault(e):
-                raise
-            return True
+    slots = A.Slots(cw, key_cs, [a.inner for a in aggs])
 
     def plain_range(a):
         try:
@@ -320,7 +281,7 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
     for a in aggs:
         cid = id(a.inner)
         if a.name in ("sum", "avg"):
-            if may_null(a):
+            if A.may_null(a):
                 need_nullcnt.add(cid)   # eff count for bias/avg
             if a.inner.rtype in INT_LIKE:
                 lo_, hi_ = plain_range(a) if a.meta["plain_col"] \
@@ -335,7 +296,7 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
             else:
                 need_fsum.add(cid)
         elif a.name in ("min", "max"):
-            if may_null(a):
+            if A.may_null(a):
                 need_nullcnt.add(cid)
             (need_min if a.name == "min" else need_max).add(cid)
             if a.meta["plain_col"] and a.inner.rtype in \
@@ -344,7 +305,7 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
                 if lo_ is not None:
                     a.meta["vrange"] = (lo_, hi_)
         elif a.name == "med":
-            if may_null(a):
+            if A.may_null(a):
                 need_nullcnt.add(cid)
             need_med.add(cid)
 
@@ -373,26 +334,14 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
         take them: (codes, value arrays, their types, and the named
         lanes {"task" | "sum" | "min" | "max": [(name, lane)]})."""
         d = cols[0].device if cols else dev.device()
-
-        def sub_env(mapping):
-            return [cols[i] for i in mapping]
-
         mask = None
         if cw is not None:
-            mask = as_tensor(cw.fn(sub_env(w_map))).to(torch.bool)
+            mask = slots.eval(cw, cols).to(torch.bool)
         if spmd:
             # shard padding rows (global row id >= n_rows) are masked
             real = row0 + torch.arange(n, device=d) < n_rows
             mask = real if mask is None else mask & real
-        codes = None
-        for ck, mp, (_nm, lo, rng, _rt, _dom) in zip(
-                key_cs, key_maps, key_meta):
-            arr = as_tensor(ck.fn(sub_env(mp)))
-            cc = (arr.to(I64) - lo).to(I32)
-            codes = cc if codes is None else codes * rng + cc
-        if codes is None:
-            codes = torch.zeros(n, dtype=I32, device=d)
-        codes = codes.expand(n)
+        codes = A.key_codes(slots, cols, key_cs, key_meta, n, d)
         if mask is not None:
             codes = torch.where(mask, codes, NC)
 
@@ -401,7 +350,7 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
         for a in aggs:
             cid = id(a.inner)
             if a.name != "count" and cid not in arrs:
-                arrs[cid] = as_tensor(a.inner.fn(sub_env(agg_maps[cid])))
+                arrs[cid] = slots.eval(a.inner, cols)
                 rtypes[cid] = a.inner.rtype
 
         # exact limb sums of the full-width integer columns
@@ -412,11 +361,11 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
             limbs, _nw, _b = G.int_limb_weights(arrs[cid], nv, lo, hi)
             tasks += [(f"limb{cid}_{i}", lb) for i, lb in enumerate(limbs)]
         sums = [(f"nullcnt{cid}",
-                 _null_mask(arrs[cid], rtypes[cid]).to(I64))
+                 A.null_mask(arrs[cid], rtypes[cid]).to(I64))
                 for cid in in_order(need_nullcnt)]
         for cid in in_order(need_isumb):
             z = arrs[cid].to(I64)
-            nv = T.NULL_BY_TYPE.get(rtypes[cid])
+            nv = A.dt_null(rtypes[cid])
             if nv is not None:
                 z = torch.where(z == int(nv), 0, z)
             sums.append((f"isum{cid}", z))
@@ -461,9 +410,9 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
             if rtypes[cid] == T.F64:
                 key = torch.where(torch.isnan(arr), np.inf, arr)
             else:
-                narrow = rtypes[cid] in NARROW
+                narrow = rtypes[cid] in NARROW32
                 key = arr.to(I64)
-                nv = T.NULL_BY_TYPE.get(rtypes[cid])
+                nv = A.dt_null(rtypes[cid])
                 if nv is not None:
                     key = torch.where(key == int(nv), (1 << 31) - 1
                                       if narrow else G.KEY_MAX, key)
@@ -472,11 +421,7 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
             sval = sort_by_code(codes, key)
             e = (counts - part[f"nullcnt{cid}"]
                  if cid in need_nullcnt else counts).to(I64)
-            lo_i = torch.clamp(m_starts + torch.clamp(e - 1, min=0) // 2,
-                               0, n - 1)
-            hi_i = torch.clamp(m_starts + e // 2, 0, n - 1)
-            v = (sval[lo_i].to(F64) + sval[hi_i].to(F64)) / 2.0
-            part[f"med{cid}"] = torch.where(e == 0, np.nan, v)
+            part[f"med{cid}"] = A.median(sval, m_starts, e, n)
         return part
 
     def spmd_partials(cols):
@@ -539,7 +484,7 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
         for a in aggs:
             cid = id(a.inner)
             rt = a.inner.rtype if a.name != "count" else T.I64
-            lane = f"{a.name}:{a.sid}"
+            lane = A.lane_name(a)
             if lane in emitted:
                 continue
             emitted.add(lane)
@@ -551,50 +496,27 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
             elif a.name == "last":
                 P.add(lane, lidx[ordi].to(I32))
             elif a.name in ("min", "max"):
-                # all-null groups: min keeps the typed INF init, max
-                # yields typed NULL (aggr.c:1158-1256, oracle-pinned)
                 v = agg_raw[f"{a.name}{cid}"][ordi]
                 nullable = cid in need_nullcnt
-                plainc = a.meta.get("plain_col")
-                if nullable:
-                    empty = mm[f"nullcnt{cid}"][ordi] == counts_o
-                if rt == T.F64:
-                    if nullable and (a.name == "max" or not plainc):
-                        # derived-expr min follows whole-vector
-                        # semantics: all-null -> 0Nf (host-pinned)
-                        v = torch.where(empty, np.nan, v)
-                    # plain min: nulls mapped +inf; all-null stays +inf
-                    P.add(lane, v)
-                else:
-                    narrow = rt in NARROW
+                v = A.minmax_nulls(v, (mm[f"nullcnt{cid}"][ordi] == counts_o)
+                                   if nullable else None, a, rt)
+                if rt != T.F64:
+                    narrow = rt in NARROW32
                     if not narrow and not nullable and \
                             "vrange" in a.meta:
                         vlo, vhi = a.meta["vrange"]
                         narrow = -(1 << 31) <= vlo and vhi < (1 << 31)
-                    if nullable:
-                        if a.name == "max" or not plainc:
-                            # derived-expr min = whole-vector
-                            # semantics: all-null -> typed NULL
-                            fillv = T.NULL_BY_TYPE.get(rt, T.NULL_I64)
-                        else:   # plain min: typed INF (iinfo max)
-                            fillv = np.iinfo(T.DTYPE[rt]).max
-                        v = torch.where(empty, int(fillv), v)
-                        narrow = rt in NARROW
-                    P.add(lane, v.to(I32) if narrow else v)
+                    if narrow:
+                        v = v.to(I32)
+                P.add(lane, v)
             elif a.name == "med":
                 P.add(lane, agg_raw[f"med{cid}"][ordi])
             elif rt == T.F64:   # f64 sum / avg
                 s = agg_raw[f"fsum{cid}"][ordi]
                 if a.name == "avg":
-                    e = eff(cid)
-                    s = torch.where(e == 0, np.nan, s / e)
-                elif grouped and cid in need_nullcnt and \
-                        a.meta.get("plain_col"):
-                    # grouped sum of a PLAIN column propagates nulls;
-                    # derived exprs sum per-group vectors which SKIP
-                    # them (oracle-pinned)
-                    s = torch.where(mm[f"nullcnt{cid}"][ordi] > 0,
-                                    np.nan, s)
+                    s = A.avg(s, eff(cid))
+                elif A.sum_propagates(a, cid in need_nullcnt, grouped):
+                    s = A.sum_nulls(s, mm[f"nullcnt{cid}"][ordi], rt)
                 P.add(lane, s)
             else:               # integer sum / avg
                 if cid in need_isumb:
@@ -613,20 +535,13 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
                                 1 << (G.LIMB_BITS * i))
                         tot = tot[ordi] - eff(cid) * float(bias)
                     if a.name == "avg":
-                        e = eff(cid)
-                        P.add(lane, torch.where(e == 0, np.nan, tot / e))
+                        P.add(lane, A.avg(tot, eff(cid)))
+                    elif A.sum_propagates(a, cid in need_nullcnt, grouped):
+                        P.add(lane, A.sum_nulls(
+                            tot.to(I64), mm[f"nullcnt{cid}"][ordi], rt))
                     else:
                         v = tot.to(I64)
-                        if grouped and cid in need_nullcnt and \
-                                a.meta.get("plain_col"):
-                            ot = SUM_OUT.get(rt, T.I64)
-                            nv = T.NULL_BY_TYPE.get(ot, T.NULL_I64)
-                            v = torch.where(
-                                mm[f"nullcnt{cid}"][ordi] > 0, int(nv), v)
-                            P.add(lane, v)
-                        else:
-                            P.add(lane, v.to(I32)
-                                  if bound < (1 << 31) else v)
+                        P.add(lane, v.to(I32) if bound < (1 << 31) else v)
                 else:
                     # full-width sum: the host recombines exactly
                     for i in range(n_limbs):
@@ -647,7 +562,7 @@ def _build_dense(n_rows, cw, grouped, key_cs, key_meta, n_codes, aggs):
     plan = _Plan()
     plan.fn = pipeline
     plan.spmd = spmd
-    plan.col_objs = col_objs
+    plan.col_objs = slots.cols
     plan.key_meta = key_meta
     plan.aggs = aggs
     plan.n_codes = n_codes
@@ -751,62 +666,24 @@ def try_select_device(interp, src: Obj, outs, where_ast, by_ast, lim,
         # no-by result semantics (a no-by select still yields ONE row
         # of whole-vector-over-empty aggregates, e.g. avg -> 0Nf)
         return None if empty_to_none else "empty"
-    slots = lanes["slots"][:k].astype(np.int64)
-
-    out_names: list[int] = []
-    out_cols: list[Obj] = []
-
-    # decode key values arithmetically from dense slot ids
-    muls = []
-    m = 1
-    for _nm, _lo, rng, _rt, _dom in reversed(plan.key_meta):
-        muls.append(m)
-        m *= rng
-    muls.reverse()
-    for (nm, lo, rng, rt, dom), mul in zip(plan.key_meta, muls):
-        vals = (slots // mul) % rng + lo
-        out_names.append(nm)
-        if dom is not None:
-            out_cols.append(Obj(T.ENUM, vals.astype(np.int64),
-                                domain=dom))
-        elif rt == T.SYMBOL:
-            out_cols.append(Obj(T.SYMBOL, vals.astype(np.int64)))
-        else:
-            out_cols.append(Obj(rt, vals.astype(T.DTYPE[rt])))
-
+    # key values decoded arithmetically from the ordered dense codes
+    codes = lanes["slots"][:k].astype(np.int64)
+    out_cols = [A.key_obj(km, v.astype(T.DTYPE[km[3]])) for km, v in
+                zip(plan.key_meta, A.key_values(codes, plan.key_meta))]
     grouped = bool(plan.key_meta)
     for a in plan.aggs:
-        out_names.append(a.sid)
-        rt = a.inner.rtype if a.name != "count" else T.I64
-        lane = f"{a.name}:{a.sid}"
-        if a.name == "count":
-            out_cols.append(Obj(T.I64,
-                                lanes[lane][:k].astype(np.int64)))
-        elif a.name in ("first", "last"):
-            out_cols.append(_host_gather(a.inner.cols[0].col,
-                                         lanes[lane][:k]))
-        elif a.name in ("min", "max"):
-            v = lanes[lane][:k]
-            if rt == T.F64:
-                out_cols.append(Obj(T.F64, v.astype(np.float64)))
-            else:
-                out_cols.append(Obj(rt, v.astype(T.DTYPE[rt])))
-        elif a.name == "med":
-            out_cols.append(Obj(T.F64,
-                                lanes[lane][:k].astype(np.float64)))
-        elif a.meta.get("limb_fallback"):
+        if a.meta.get("limb_fallback"):    # its lanes are the limb sums
             out_cols.append(self_recombine(
                 a, lanes, k, avg=a.name == "avg",
-                grouped=grouped and bool(a.meta.get("plain_col"))))
-        elif rt == T.F64 or a.name == "avg":
-            out_cols.append(Obj(T.F64,
-                                lanes[lane][:k].astype(np.float64)))
-        else:  # integer sum
-            ot = SUM_OUT.get(rt, T.I64)
-            out_cols.append(Obj(ot, lanes[lane][:k].astype(T.DTYPE[ot])))
-
-    return table(Obj(T.SYMBOL, np.asarray(out_names, dtype=np.int64)),
-                 out_cols)
+                propagate=A.sum_propagates(a, True, grouped)))
+            continue
+        v = lanes[A.lane_name(a)][:k]
+        if a.name in ("first", "last"):
+            out_cols.append(_host_gather(a.inner.cols[0].col, v))
+        else:
+            t = A.result_type(a)
+            out_cols.append(Obj(t, v.astype(T.DTYPE[t])))
+    return A.result_table(plan.key_meta, plan.aggs, out_cols)
 
 
 def _cached_plan(src: Obj, outs, where_ast, by_ast):
@@ -868,7 +745,7 @@ def _run_dense(plan):
 
 
 def self_recombine(a: _Agg, lanes, k, avg: bool,
-                   grouped: bool = True) -> Obj:
+                   propagate: bool = True) -> Obj:
     """Host-exact recombination for full-width integer sums whose
     bound exceeds 2^53 (full-range i64 columns). avg divides the exact
     Python-int total; only the sum wraps to i64."""
@@ -887,8 +764,7 @@ def self_recombine(a: _Agg, lanes, k, avg: bool,
         return Obj(T.F64, v)
     wrapped = ((tot.astype(object) + (1 << 63)) % (1 << 64)) - (1 << 63)
     vals = np.array([int(x) for x in wrapped], dtype=np.int64)
-    ot = SUM_OUT.get(a.inner.rtype, T.I64)
-    if grouped:   # grouped sum propagates nulls (oracle-pinned)
-        nv = T.NULL_BY_TYPE.get(ot, T.NULL_I64)
-        vals = np.where(nullc > 0, np.int64(nv), vals)
+    if propagate:
+        vals = A.sum_nulls(vals, nullc, a.inner.rtype)
+    ot = A.result_type(a)
     return Obj(ot, vals.astype(T.DTYPE[ot]))

@@ -30,11 +30,10 @@ Pipeline (plain torch over the column tensors, one scalar fetch):
 7. Output lanes stay ON DEVICE (DevPendingSliced: capacity-NCAP lanes
    with logical length ng); the host fetches only [ng, straggler].
 
-Null semantics mirror the host kernels (oracle-pinned, see
-engine/select.py): grouped sum propagates nulls, avg/min/max/med skip
-them, all-null groups yield typed INF for min / typed NULL for max,
-count counts all rows. Groups here are always non-empty (compaction
-keeps occupied codes only), so empty-group fills never apply.
+What the aggregates become (slots, operands, null rules, result
+types) is engine/aggs.py's. Groups here are always non-empty
+(compaction keeps occupied codes only), so empty-group fills never
+apply.
 """
 from __future__ import annotations
 
@@ -45,10 +44,10 @@ import torch
 
 from ..core import profiler as prof
 from ..core import types as T
-from ..core.obj import Obj, table, DevPendingSliced
+from . import aggs as A
 from . import device as dev
 from . import groupby as G
-from .exprc import as_tensor, torch_dtype
+from .aggs import INT_LIKE, tdt
 from .psort import argsort, sort_by_code, sort_i32, sort_mixed
 
 # head/tail sort sizing (module-level so tests can shrink them to force
@@ -64,25 +63,12 @@ SEARCH_NCAP = 1 << 14
 
 _BIG = 1 << 30
 
-SUM_OUT = {T.U8: T.I64, T.I16: T.I64, T.I32: T.I32, T.I64: T.I64}
-INT_LIKE = (T.B8, T.U8, T.I16, T.I32, T.I64, T.DATE, T.TIME,
-            T.TIMESTAMP, T.SYMBOL)
-NARROW32 = (T.B8, T.U8, T.I16, T.I32, T.DATE, T.TIME)
-
 I32, I64, F64, BOOL = torch.int32, torch.int64, torch.float64, torch.bool
 
 
 class _SAPlan:
     __slots__ = ("fn", "col_objs", "key_meta", "aggs", "n_codes",
                  "n_rows", "exact", "fallback", "out_meta", "_rebuild")
-
-
-def _dt_null(rt):
-    return T.NULL_BY_TYPE.get(rt)
-
-
-def _tdt(rt):
-    return torch_dtype(T.DTYPE[rt])
 
 
 def _starts(sc):
@@ -106,66 +92,9 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
         NCAP <= M
     exact = not use_head
 
-    # --- column slots ----------------------------------------------------
-    col_objs: list = []
-    slot_of: dict = {}
-
-    def assign(ck):
-        mapping = []
-        for ref in ck.cols:
-            key = id(ref.col)
-            if key not in slot_of:
-                slot_of[key] = len(col_objs)
-                col_objs.append(ref.col)
-            mapping.append(slot_of[key])
-        return mapping
-
-    w_map = assign(cw) if cw is not None else None
-    key_maps = [assign(ck) for ck in key_cs]
-    agg_maps = {}
-    for a in aggs:
-        cid = id(a.inner)
-        if cid not in agg_maps:
-            agg_maps[cid] = assign(a.inner)
-
-    # --- per-cid aggregate needs ----------------------------------------
-    def may_null(a):
-        if not a.meta.get("plain_col"):
-            return True
-        try:
-            return dev.column_has_null(a.inner.cols[0].col)
-        except Exception as e:
-            if dev.is_fault(e):
-                raise
-            return True
-
-    cinfo: dict = {}   # cid -> dict(rtype, ops=set, agg, plain)
-    need_lidx = False
-    for a in aggs:
-        cid = id(a.inner)
-        ci = cinfo.setdefault(cid, {
-            "rtype": a.inner.rtype, "ops": set(),
-            "agg": a.inner, "plain": a.meta.get("plain_col", False)})
-        if a.name == "count":
-            continue
-        if a.name == "first":
-            continue
-        if a.name == "last":
-            need_lidx = True
-            continue
-        nullable = may_null(a)
-        if a.name in ("sum", "avg"):
-            ci["ops"].add("sum")
-        elif a.name in ("min", "max"):
-            ci["ops"].add(a.name)
-        elif a.name == "med":
-            ci["ops"].add("med")
-        elif a.name == "dev":
-            ci["ops"].add("dev")
-        else:
-            return None
-        if nullable:
-            ci["ops"].add("null")
+    slots = A.Slots(cw, key_cs, [a.inner for a in aggs])
+    cinfo = A.col_needs(aggs)
+    need_lidx = any(a.name == "last" for a in aggs)
 
     # --- key packing (static) -------------------------------------------
     budget = (62 - code_bits - pos_bits) if exact else (31 - code_bits)
@@ -206,37 +135,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
         if cinfo[tc]["ops"] & {"min", "max"}:
             top_cid = tc
 
-    # --- operand layout (static) ----------------------------------------
-    operands: list = []   # (cid, kind) kind in i32/i64/f64/(q32, scale)
-    op_ix: dict = {}
-    for cid in sorted(cinfo):
-        ci = cinfo[cid]
-        if cid in packed:
-            continue
-        needs_operand = bool(ci["ops"] - {"med"})
-        if not needs_operand:
-            continue
-        rt = ci["rtype"]
-        if rt == T.F64:
-            kind = "f64"
-            if ci["plain"]:
-                # decimal fixed-point columns (cached qscale stat)
-                # ride the sort as EXACT i32 operands — half the
-                # sorted bytes of an f64 operand; decoded back to f64
-                # (nulls -> NaN) right after the sort
-                qs = dev.column_qscale(ci["agg"].cols[0].col)
-                if qs:
-                    kind = ("q32", float(qs))
-        elif rt in NARROW32:
-            kind = "i32"
-        else:
-            kind = "i64"
-            if ci["plain"] and "null" not in ci["ops"]:
-                lo, hi = dev.column_range(ci["agg"].cols[0].col)
-                if -(1 << 31) < lo and hi < (1 << 31):
-                    kind = "i32"
-        op_ix[cid] = len(operands)
-        operands.append((cid, kind))
+    operands, op_ix = A.operands(cinfo, packed)
 
     med_cids = sorted(cid for cid, ci in cinfo.items()
                       if "med" in ci["ops"])
@@ -252,30 +151,19 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
     def pipeline(*cols):
         d = cols[0].device if cols else dev.device()
 
-        def sub_env(mapping):
-            return [cols[i] for i in mapping]
-
         def iota(n, dtype=I32):
             return torch.arange(n, dtype=dtype, device=d)
 
         mask = None
         if cw is not None:
-            mask = as_tensor(cw.fn(sub_env(w_map))).to(BOOL)
-        codes = None
-        for ck, mp, (_nm, lo, rng, _rt, _dom) in zip(
-                key_cs, key_maps, key_meta):
-            arr = as_tensor(ck.fn(sub_env(mp)))
-            cc = (arr.to(I64) - lo).to(I32)
-            codes = cc if codes is None else codes * rng + cc
-        if codes is None:
-            codes = torch.zeros(n_rows, dtype=I32, device=d)
-        codes = codes.expand(n_rows)
+            mask = slots.eval(cw, cols).to(BOOL)
+        codes = A.key_codes(slots, cols, key_cs, key_meta, n_rows, d)
         if mask is not None:
             codes = torch.where(mask, codes, NC)
 
         arrs = {}
         for cid, ci in cinfo.items():
-            arrs[cid] = as_tensor(ci["agg"].fn(sub_env(agg_maps[cid])))
+            arrs[cid] = slots.eval(ci["agg"], cols)
 
         # ---- main sort ---------------------------------------------------
         key = codes.to(key_dt)
@@ -285,20 +173,8 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
             key = key << vb
             for cid, (sh, bits, lo) in packed.items():
                 key = key | ((arrs[cid].to(key_dt) - lo) << sh)
-        ops_in = []
-        for cid, kind in operands:
-            a = arrs[cid]
-            if kind == "f64":
-                ops_in.append(a.to(F64))
-            elif isinstance(kind, tuple):     # ("q32", scale)
-                rq = torch.round(a * kind[1])
-                ops_in.append(torch.where(
-                    torch.isnan(a), int(T.NULL_I32), rq.to(I32)))
-            elif kind == "i32":
-                ops_in.append(a.to(I32))
-            else:
-                ops_in.append(a.to(I64))
-        skey, sops = sort_mixed(key, ops_in)
+        skey, sops = sort_mixed(key, [A.operand(arrs[cid], kind)
+                                      for cid, kind in operands])
 
         shift_all = vb + (pos_bits if exact else 0)
         sc = (skey >> shift_all).to(I32)
@@ -378,21 +254,8 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
                 free_mm = cid == top_cid
                 p32 = span * n_rows < (1 << 31)
             elif cid in op_ix:
-                v = sops[op_ix[cid]]
-                kind = operands[op_ix[cid]][1]
-                if isinstance(kind, tuple):
-                    # quantized i32 operand -> back to f64 values with
-                    # NaN nulls; all F64 semantics below apply as-is
-                    v = torch.where(v == int(T.NULL_I32), np.nan,
-                                    v.to(F64) / kind[1])
-                if rt == T.F64:
-                    nul = torch.isnan(v)
-                else:
-                    # widen first: an i64 column riding as i32 must
-                    # not meet its null sentinel wrapped to i32 (0)
-                    v = v.to(I64)
-                    nv = _dt_null(rt)
-                    nul = (v == int(nv)) if nv is not None else None
+                v, nul = A.from_operand(sops[op_ix[cid]],
+                                        operands[op_ix[cid]][1], rt)
             else:
                 continue
             if "null" in ops and nul is not None:
@@ -403,12 +266,9 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
                     # sums provably < 2^31), un-bias at the boundary
                     bs = G.seg_doubling_sum(sc, raw.to(I32))[ea]
                     segres[("sum", cid)] = bs.to(I64) + lo * counts
-                elif rt == T.F64:
-                    z = torch.where(torch.isnan(v), 0.0, v)
-                    segres[("sum", cid)] = G.seg_doubling_sum(sc, z)[ea]
                 else:
-                    z = torch.where(nul, 0, v) if nul is not None else v
-                    segres[("sum", cid)] = G.seg_doubling_sum(sc, z)[ea]
+                    segres[("sum", cid)] = G.seg_doubling_sum(
+                        sc, A.skip_nulls(v, nul, "sum"))[ea]
             if "dev" in ops:
                 # std via segment-min-shifted moments: var =
                 # E[(x-c)^2] - E[x-c]^2 with c = per-segment min
@@ -416,7 +276,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
                 # cancellation-safe like the host's two-pass np.std
                 if rt == T.F64:
                     xv = v
-                    nn = torch.isnan(v)
+                    nn = nul
                 else:
                     xv = v.to(F64)
                     nn = nul if nul is not None else \
@@ -439,12 +299,8 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
                     segres[("min", cid)] = G.seg_doubling_min(
                         sc, raw.to(I32))[ea].to(I64) + lo
                 else:
-                    if rt == T.F64:
-                        mv = torch.where(torch.isnan(v), np.inf, v)
-                    else:
-                        mv = torch.where(nul, G.KEY_MAX, v) \
-                            if nul is not None else v
-                    segres[("min", cid)] = G.seg_doubling_min(sc, mv)[ea]
+                    segres[("min", cid)] = G.seg_doubling_min(
+                        sc, A.skip_nulls(v, nul, "min"))[ea]
             if "max" in ops:
                 if free_mm:
                     segres[("max", cid)] = (
@@ -453,12 +309,8 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
                     segres[("max", cid)] = G.seg_doubling_max(
                         sc, raw.to(I32))[ea].to(I64) + lo
                 else:
-                    if rt == T.F64:
-                        mv = torch.where(torch.isnan(v), -np.inf, v)
-                    else:
-                        mv = torch.where(nul, G.I64_MIN, v) \
-                            if nul is not None else v
-                    segres[("max", cid)] = G.seg_doubling_max(sc, mv)[ea]
+                    segres[("max", cid)] = G.seg_doubling_max(
+                        sc, A.skip_nulls(v, nul, "max"))[ea]
 
         # ---- med: per-column (code, value) sorts reusing bpos ------------
         medvals = {}   # cid -> (sorted values, dequant scale or None)
@@ -475,7 +327,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
                 else:
                     mkey = torch.where(torch.isnan(a), np.inf, a)
             else:
-                nv = _dt_null(rt)
+                nv = A.dt_null(rt)
                 a64 = a.to(I64)
                 mkey = torch.where(a64 == int(nv), G.KEY_MAX, a64) \
                     if nv is not None else a64
@@ -534,21 +386,9 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
             lanes.append(x)
 
         # key decode (device-side, compacted code -> per-key values)
-        bcode_o = order(bcode).to(I64)
-        muls = []
-        m_ = 1
-        for _nm, _lo, rng, _rt, _dom in reversed(key_meta):
-            muls.append(m_)
-            m_ *= rng
-        muls.reverse()
-        for i, ((nm, lo, rng, rt, dom), mul) in enumerate(
-                zip(key_meta, muls)):
-            vals = torch.remainder(
-                torch.div(bcode_o, mul, rounding_mode="floor"), rng) + lo
-            if rt == T.SYMBOL or dom is not None:
-                emit(f"key{i}", vals.to(I64))
-            else:
-                emit(f"key{i}", vals.to(_tdt(rt)))
+        for i, (km, vals) in enumerate(zip(key_meta, A.key_values(
+                order(bcode).to(I64), key_meta))):
+            emit(f"key{i}", vals.to(tdt(km[3])))
 
         counts_o = order(counts)
         fidx_o = order(fidx)
@@ -562,83 +402,36 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
         for a in aggs:
             cid = id(a.inner)
             rt = a.inner.rtype if a.name != "count" else T.I64
-            lane = f"{a.name}:{a.sid}"
+            lane = A.lane_name(a)
             if lane in names:
                 continue
             if a.name == "count":
                 emit(lane, counts_o)
-            elif a.name == "first":
-                srcv = cols[agg_maps[cid][0]]
-                emit(lane, srcv[torch.clamp(fidx_o, 0, n_rows - 1)])
-            elif a.name == "last":
-                srcv = cols[agg_maps[cid][0]]
-                emit(lane, srcv[torch.clamp(lidx_o, 0, n_rows - 1)])
+            elif a.name in ("first", "last"):
+                srcv = cols[slots.of[cid][0]]
+                emit(lane, srcv[torch.clamp(
+                    fidx_o if a.name == "first" else lidx_o, 0, n_rows - 1)])
             elif a.name in ("min", "max"):
-                # all-null groups: PLAIN-column grouped min keeps the
-                # typed INF init (aggr.c:1241); min/max of a DERIVED
-                # expression runs per-group whole-vector semantics ->
-                # typed NULL (math.c fold; host-pinned); grouped max
-                # yields NULL either way
                 v = order(segres[(a.name, cid)])
-                if cid in nullcnt:
-                    empty = order(nullcnt[cid]) >= counts_o
-                    plain = a.meta.get("plain_col")
-                    if rt == T.F64:
-                        if a.name == "max" or not plain:
-                            v = torch.where(empty, np.nan, v)
-                        # plain min: all-null stays +inf (typed INF)
-                    elif a.name == "max" or not plain:
-                        nv = _dt_null(rt)
-                        v = torch.where(empty, int(
-                            nv if nv is not None else T.NULL_I64), v)
-                    else:
-                        v = torch.where(empty, int(np.iinfo(
-                            T.DTYPE[rt]).max), v)
-                if rt != T.F64:
-                    v = v.to(_tdt(rt))
-                emit(lane, v)
+                v = A.minmax_nulls(v, (order(nullcnt[cid]) >= counts_o)
+                                   if cid in nullcnt else None, a, rt)
+                emit(lane, v.to(tdt(rt)))
             elif a.name == "med":
                 e = eff(cid)
-                bpos_o = order(bpos).to(I64)
-                lo_i = torch.clamp(
-                    bpos_o + torch.clamp(e - 1, min=0) // 2,
-                    0, n_rows - 1)
-                hi_i = torch.clamp(bpos_o + e // 2, 0, n_rows - 1)
                 sv, qs = medvals[cid]
-                mv = (sv[lo_i].to(F64) + sv[hi_i].to(F64)) / 2.0
-                if qs:
-                    mv = mv / qs
-                emit(lane, torch.where(e == 0, np.nan, mv))
+                emit(lane, A.median(sv, order(bpos).to(I64), e, n_rows, qs))
             elif a.name == "dev":
                 e = eff(cid).to(F64)
-                s = order(segres[("devs", cid)])
-                s2 = order(segres[("dev2", cid)])
-                safe = torch.where(e == 0, 1.0, e)
-                mean = s / safe
-                var = s2 / safe - mean * mean
-                v = torch.sqrt(torch.clamp(var, min=0.0))
-                emit(lane, torch.where(e == 0, np.nan, v))
+                emit(lane, A.stddev(order(segres[("devs", cid)]),
+                                    order(segres[("dev2", cid)]), e))
             elif a.name == "avg":
                 e = eff(cid).to(F64)
-                s = order(segres[("sum", cid)]).to(F64)
-                emit(lane, torch.where(e == 0, np.nan, s / e))
-            elif rt == T.F64:
-                # sum of a PLAIN column propagates nulls (the fused
-                # FN_AGGR path, aggr.c ADD accumulators); sum of a
-                # derived expr materializes per-group vectors whose
-                # whole-vector sum SKIPS nulls (oracle-pinned)
+                emit(lane, A.avg(order(segres[("sum", cid)]).to(F64), e))
+            else:               # sum
                 s = order(segres[("sum", cid)])
-                if cid in nullcnt and a.meta.get("plain_col"):
-                    s = torch.where(order(nullcnt[cid]) > 0, np.nan, s)
-                emit(lane, s)
-            else:               # integer sum
-                s = order(segres[("sum", cid)])
-                ot = SUM_OUT.get(rt, T.I64)
-                if cid in nullcnt and a.meta.get("plain_col"):
-                    nv = _dt_null(ot)
-                    s = torch.where(order(nullcnt[cid]) > 0, int(
-                        nv if nv is not None else T.NULL_I64), s)
-                emit(lane, s.to(_tdt(ot)))
+                if A.sum_propagates(a, cid in nullcnt):
+                    s = A.sum_nulls(s, order(nullcnt[cid]), rt)
+                emit(lane, s.to(tdt(A.result_type(a))))
 
         out_meta["names"] = names
         scalars = torch.stack([ng.to(I64), straggler.to(I64)])
@@ -646,7 +439,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
 
     plan = _SAPlan()
     plan.fn = pipeline
-    plan.col_objs = col_objs
+    plan.col_objs = slots.cols
     plan.key_meta = key_meta
     plan.aggs = aggs
     plan.n_codes = NC
@@ -679,40 +472,5 @@ def run(plan: _SAPlan):
         return run(plan.fallback)
     if ng <= 0:
         return "empty"
-    lanes = dict(zip(plan.out_meta["names"], outs[1:]))
-
-    out_names: list[int] = []
-    out_cols: list[Obj] = []
-    for i, (nm, lo, rng, rt, dom) in enumerate(plan.key_meta):
-        out_names.append(nm)
-        lane = lanes[f"key{i}"]
-        if dom is not None:
-            out_cols.append(Obj(T.ENUM, DevPendingSliced(lane, ng),
-                                domain=dom))
-        elif rt == T.SYMBOL:
-            out_cols.append(Obj(T.SYMBOL, DevPendingSliced(lane, ng)))
-        else:
-            out_cols.append(Obj(rt, DevPendingSliced(lane, ng)))
-    for a in plan.aggs:
-        out_names.append(a.sid)
-        rt = a.inner.rtype if a.name != "count" else T.I64
-        lane = lanes[f"{a.name}:{a.sid}"]
-        if a.name == "count":
-            col = Obj(T.I64, DevPendingSliced(lane, ng))
-        elif a.name in ("first", "last"):
-            src = a.inner.cols[0].col
-            if src.t == T.ENUM:
-                col = Obj(T.ENUM, DevPendingSliced(lane, ng),
-                          domain=src.domain)
-            else:
-                col = Obj(src.t, DevPendingSliced(lane, ng))
-        elif a.name in ("min", "max"):
-            col = Obj(rt, DevPendingSliced(lane, ng))
-        elif a.name in ("med", "dev", "avg") or rt == T.F64:
-            col = Obj(T.F64, DevPendingSliced(lane, ng))
-        else:
-            col = Obj(SUM_OUT.get(rt, T.I64),
-                      DevPendingSliced(lane, ng))
-        out_cols.append(col)
-    return table(Obj(T.SYMBOL, np.asarray(out_names, dtype=np.int64)),
-                 out_cols)
+    return A.lanes_table(plan.key_meta, plan.aggs,
+                         dict(zip(plan.out_meta["names"], outs[1:])), ng)

@@ -31,22 +31,17 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..core import profiler as prof
-from ..core import types as T
-from ..core.obj import Obj, table, DevPendingSliced
+from . import aggs as A
 from . import device as dev
 from . import groupby as G
+from .aggs import tdt
 from .device import DeviceError
-from .exprc import as_tensor, torch_dtype
 from .psort import LAUNCHES, _LAUNCHES_LOCK, join64, sort_lex, split64
 
 _TRASH_SHIFT = 61
-
-SUM_OUT = {T.U8: T.I64, T.I16: T.I64, T.I32: T.I32, T.I64: T.I64}
-NARROW32 = (T.B8, T.U8, T.I16, T.I32, T.DATE, T.TIME)
 
 I32, I64, F64, BOOL = torch.int32, torch.int64, torch.float64, torch.bool
 
@@ -54,14 +49,6 @@ I32, I64, F64, BOOL = torch.int32, torch.int64, torch.float64, torch.bool
 class _WPlan:
     __slots__ = ("fn", "col_objs", "key_meta", "aggs", "n_rows",
                  "out_meta")
-
-
-def _dt_null(rt):
-    return T.NULL_BY_TYPE.get(rt)
-
-
-def _tdt(rt):
-    return torch_dtype(T.DTYPE[rt])
 
 
 # -- the key words ---------------------------------------------------------
@@ -342,8 +329,7 @@ def key_layout(key_meta, n_rows):
         mins=tuple(int(lo) for _bits, lo in dims),
         pos_word=len(words) - 1, pos_bits=pos_bits,
         carry=tuple(wi for wi, w in enumerate(words) if w),
-        out=tuple(I64 if rt == T.SYMBOL or dom is not None else _tdt(rt)
-                  for _nm, _lo, _rng, rt, dom in key_meta))
+        out=tuple(tdt(rt) for _nm, _lo, _rng, rt, _dom in key_meta))
 
 
 def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
@@ -355,116 +341,24 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
     if lay is None:
         return None
 
-    # --- column slots ----------------------------------------------------
-    col_objs: list = []
-    slot_of: dict = {}
-
-    def assign(ck):
-        mapping = []
-        for ref in ck.cols:
-            key = id(ref.col)
-            if key not in slot_of:
-                slot_of[key] = len(col_objs)
-                col_objs.append(ref.col)
-            mapping.append(slot_of[key])
-        return mapping
-
-    w_map = assign(cw) if cw is not None else None
-    key_maps = [assign(ck) for ck in key_cs]
-    agg_maps = {}
-    for a in aggs:
-        cid = id(a.inner)
-        if cid not in agg_maps:
-            agg_maps[cid] = assign(a.inner)
-
-    # --- aggregate needs --------------------------------------------------
-    def may_null(a):
-        if not a.meta.get("plain_col"):
-            return True
-        try:
-            return dev.column_has_null(a.inner.cols[0].col)
-        except Exception as e:
-            if dev.is_fault(e):
-                raise
-            return True
-
-    cinfo: dict = {}
-    for a in aggs:
-        cid = id(a.inner)
-        ci = cinfo.setdefault(cid, {
-            "rtype": a.inner.rtype, "ops": set(), "agg": a.inner,
-            "plain": a.meta.get("plain_col", False)})
-        if a.name in ("count", "first", "last"):
-            continue
-        if a.name in ("sum", "avg"):
-            ci["ops"].add("sum")
-        elif a.name in ("min", "max"):
-            ci["ops"].add(a.name)
-        else:
-            return None
-        if may_null(a):
-            ci["ops"].add("null")
-
-    operands: list = []
-    op_ix: dict = {}
-    for cid in sorted(cinfo):
-        ci = cinfo[cid]
-        if not ci["ops"]:
-            continue
-        rt = ci["rtype"]
-        if rt == T.F64:
-            kind = "f64"
-            if ci["plain"]:
-                # decimal fixed-point column (qscale stat): exact i32
-                # sort operand, dequantized right after (sortagg has
-                # the same fast path; see engine/device.py)
-                qs = dev.column_qscale(ci["agg"].cols[0].col)
-                if qs:
-                    kind = ("q32", float(qs))
-        elif rt in NARROW32:
-            kind = "i32"
-        else:
-            kind = "i64"
-            if ci["plain"] and "null" not in ci["ops"]:
-                lo, hi = dev.column_range(ci["agg"].cols[0].col)
-                if -(1 << 31) < lo and hi < (1 << 31):
-                    kind = "i32"
-        op_ix[cid] = len(operands)
-        operands.append((cid, kind))
+    slots = A.Slots(cw, key_cs, [a.inner for a in aggs])
+    cinfo = A.col_needs(aggs)
+    operands, op_ix = A.operands(cinfo)
 
     out_meta: dict = {}
     N = n_rows
 
     def pipeline(*cols):
         d = cols[0].device if cols else dev.device()
-
-        def sub_env(mapping):
-            return [cols[i] for i in mapping]
-
         mask = None
         if cw is not None:
-            mask = as_tensor(cw.fn(sub_env(w_map))).to(BOOL)
-        keys = [as_tensor(ck.fn(sub_env(mp)))
-                for ck, mp in zip(key_cs, key_maps)]
+            mask = slots.eval(cw, cols).to(BOOL)
+        keys = [slots.eval(ck, cols) for ck in key_cs]
         kw = pack_keys(lay, keys, mask, N)
 
-        arrs = {}
-        for cid, ci in cinfo.items():
-            if ci["ops"]:
-                arrs[cid] = as_tensor(ci["agg"].fn(sub_env(agg_maps[cid])))
-        ops_in = []
-        for cid, kind in operands:
-            a = arrs[cid]
-            if kind == "f64":
-                ops_in.append(a.to(F64))
-            elif isinstance(kind, tuple):     # ("q32", scale)
-                rq = torch.round(a * kind[1])
-                ops_in.append(torch.where(
-                    torch.isnan(a), int(T.NULL_I32), rq.to(I32)))
-            elif kind == "i32":
-                ops_in.append(a.to(I32))
-            else:
-                ops_in.append(a.to(I64))
+        arrs = {cid: slots.eval(ci["agg"], cols)
+                for cid, ci in cinfo.items() if ci["ops"]}
+        ops_in = [A.operand(arrs[cid], kind) for cid, kind in operands]
 
         # every key is unique (the row position rides the last word),
         # so the order is fully determined
@@ -494,101 +388,48 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
         segres = {}
         nullcnt = {}
         for cid, ci in cinfo.items():
-            ops = ci["ops"]
-            if not ops:
+            if cid not in op_ix:
                 continue
-            rt = ci["rtype"]
-            v = sops[op_ix[cid]]
-            kind = operands[op_ix[cid]][1]
-            if isinstance(kind, tuple):
-                # quantized i32 operand -> f64 values with NaN nulls
-                v = torch.where(v == int(T.NULL_I32), np.nan,
-                                v.to(F64) / kind[1])
-            if rt == T.F64:
-                nul = torch.isnan(v)
-            else:
-                # widen first: an i64 column riding as i32 must not
-                # meet its null sentinel wrapped to i32 (0)
-                v = v.to(I64)
-                nv = _dt_null(rt)
-                nul = (v == int(nv)) if nv is not None else None
+            ops = ci["ops"]
+            v, nul = A.from_operand(sops[op_ix[cid]], operands[op_ix[cid]][1],
+                                    ci["rtype"])
             if "null" in ops and nul is not None:
                 nullcnt[cid] = rsum(nul.to(I64))
             if "sum" in ops:
-                if rt == T.F64:
-                    z = torch.where(nul, 0.0, v)
-                else:
-                    z = torch.where(nul, 0, v) if nul is not None else v
-                segres[("sum", cid)] = rsum(z)
+                segres[("sum", cid)] = rsum(A.skip_nulls(v, nul, "sum"))
             if "min" in ops:
-                if rt == T.F64:
-                    mv = torch.where(nul, np.inf, v)
-                else:
-                    mv = torch.where(nul, G.KEY_MAX, v) \
-                        if nul is not None else v
-                segres[("min", cid)] = rmin(mv)
+                segres[("min", cid)] = rmin(A.skip_nulls(v, nul, "min"))
             if "max" in ops:
-                if rt == T.F64:
-                    mv = torch.where(nul, -np.inf, v)
-                else:
-                    mv = torch.where(nul, G.I64_MIN, v) \
-                        if nul is not None else v
-                segres[("max", cid)] = rmax(mv)
+                segres[("max", cid)] = rmax(A.skip_nulls(v, nul, "max"))
 
         # ---- un-ordered per-group lanes (live on segment-start rows) ----
         lanes = {}
         for a in aggs:
             cid = id(a.inner)
-            rt = a.inner.rtype if a.name != "count" else T.I64
-            lane = f"{a.name}:{a.sid}"
+            rt = a.inner.rtype
+            lane = A.lane_name(a)
             if lane in lanes:
                 continue
             if a.name == "count":
                 lanes[lane] = counts
-            elif a.name == "first":
-                srcv = cols[agg_maps[cid][0]]
-                lanes[lane] = srcv[torch.clamp(fidx, 0, N - 1)]
-            elif a.name == "last":
-                srcv = cols[agg_maps[cid][0]]
-                lanes[lane] = srcv[torch.clamp(lidx, 0, N - 1)]
+            elif a.name in ("first", "last"):
+                srcv = cols[slots.of[cid][0]]
+                lanes[lane] = srcv[torch.clamp(
+                    fidx if a.name == "first" else lidx, 0, N - 1)]
             elif a.name in ("min", "max"):
-                # all-null: plain min keeps typed INF; derived-expr
-                # min and any max yield typed NULL (host-pinned)
-                v = segres[(a.name, cid)]
-                if cid in nullcnt:
-                    empty = nullcnt[cid] >= counts
-                    plain = a.meta.get("plain_col")
-                    if rt == T.F64:
-                        if a.name == "max" or not plain:
-                            v = torch.where(empty, np.nan, v)
-                    elif a.name == "max" or not plain:
-                        nv = _dt_null(rt)
-                        v = torch.where(empty, int(
-                            nv if nv is not None else T.NULL_I64), v)
-                    else:
-                        v = torch.where(empty, int(np.iinfo(
-                            T.DTYPE[rt]).max), v)
-                if rt != T.F64:
-                    v = v.to(_tdt(rt))
-                lanes[lane] = v
+                v = A.minmax_nulls(segres[(a.name, cid)],
+                                   (nullcnt[cid] >= counts)
+                                   if cid in nullcnt else None, a, rt)
+                lanes[lane] = v.to(tdt(rt))
             elif a.name == "avg":
                 e = counts - nullcnt[cid] if cid in nullcnt else counts
                 e = e.to(F64)
-                s = segres[("sum", cid)].to(F64)
-                lanes[lane] = torch.where(e == 0, np.nan, s / e)
-            elif rt == T.F64:
+                lanes[lane] = A.avg(segres[("sum", cid)].to(F64), e)
+            else:               # sum
                 s = segres[("sum", cid)]
-                if cid in nullcnt and a.meta.get("plain_col"):
-                    s = torch.where(nullcnt[cid] > 0, np.nan, s)
-                lanes[lane] = s
-            else:
-                s = segres[("sum", cid)]
-                ot = SUM_OUT.get(rt, T.I64)
-                if cid in nullcnt and a.meta.get("plain_col"):
-                    nv = _dt_null(ot)
-                    s = torch.where(nullcnt[cid] > 0, int(
-                        nv if nv is not None else T.NULL_I64), s)
-                lanes[lane] = s.to(_tdt(ot))
+                if A.sum_propagates(a, cid in nullcnt):
+                    s = A.sum_nulls(s, nullcnt[cid], rt)
+                lanes[lane] = s.to(tdt(A.result_type(a)))
 
         # ---- first-appearance ordering: carry lanes through ONE sort ----
         # fkey: the first row on a boundary row, else INT32_MAX; only the
@@ -615,7 +456,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
 
     plan = _WPlan()
     plan.fn = pipeline
-    plan.col_objs = col_objs
+    plan.col_objs = slots.cols
     plan.key_meta = key_meta
     plan.aggs = aggs
     plan.n_rows = n_rows
@@ -631,40 +472,5 @@ def run(plan: _WPlan):
     ng = int(prof.host("wide.groups", outs[0].cpu)[0])
     if ng <= 0:
         return "empty"
-    lanes = dict(zip(plan.out_meta["names"], outs[1:]))
-
-    out_names: list[int] = []
-    out_cols: list[Obj] = []
-    for i, (nm, lo, rng, rt, dom) in enumerate(plan.key_meta):
-        out_names.append(nm)
-        lane = lanes[f"key{i}"]
-        if dom is not None:
-            out_cols.append(Obj(T.ENUM, DevPendingSliced(lane, ng),
-                                domain=dom))
-        elif rt == T.SYMBOL:
-            out_cols.append(Obj(T.SYMBOL, DevPendingSliced(lane, ng)))
-        else:
-            out_cols.append(Obj(rt, DevPendingSliced(lane, ng)))
-    for a in plan.aggs:
-        out_names.append(a.sid)
-        rt = a.inner.rtype if a.name != "count" else T.I64
-        lane = lanes[f"{a.name}:{a.sid}"]
-        if a.name == "count":
-            col = Obj(T.I64, DevPendingSliced(lane, ng))
-        elif a.name in ("first", "last"):
-            src = a.inner.cols[0].col
-            if src.t == T.ENUM:
-                col = Obj(T.ENUM, DevPendingSliced(lane, ng),
-                          domain=src.domain)
-            else:
-                col = Obj(src.t, DevPendingSliced(lane, ng))
-        elif a.name in ("min", "max"):
-            col = Obj(rt, DevPendingSliced(lane, ng))
-        elif a.name == "avg" or rt == T.F64:
-            col = Obj(T.F64, DevPendingSliced(lane, ng))
-        else:
-            col = Obj(SUM_OUT.get(rt, T.I64),
-                      DevPendingSliced(lane, ng))
-        out_cols.append(col)
-    return table(Obj(T.SYMBOL, np.asarray(out_names, dtype=np.int64)),
-                 out_cols)
+    return A.lanes_table(plan.key_meta, plan.aggs,
+                         dict(zip(plan.out_meta["names"], outs[1:])), ng)

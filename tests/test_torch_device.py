@@ -1,8 +1,9 @@
 """Column stats of the port's device engine (engine/device.py
-`_k_minmax_all`: min, max, has_null, qscale, skipping nulls and NaNs)
-against the JAX package's, on the decimal-grid fixtures of
-tests/test_qscale.py (grids 1, 1e2, 1e4, 1e6) plus typed-null integer
-columns. Both run in f64/i64 on the CPU, so the stats must be equal."""
+`_k_stat_parts` and `_combine_parts`: min, max, has_null, qscale,
+skipping nulls and NaNs) against the JAX package's `_k_minmax_all`, on
+the decimal-grid fixtures of tests/test_qscale.py (grids 1, 1e2, 1e4,
+1e6) plus typed-null integer columns. Both run in f64/i64 on the CPU,
+so the stats must be equal."""
 import numpy as np
 import pytest
 import torch
@@ -58,11 +59,13 @@ def test_minmax_all_matches_reference():
     cols = _columns()
     ref = [np.asarray(x) for x in rdev._k_minmax_all(
         [jnp.asarray(a) for a, _t in cols.values()])]
-    got = [x.numpy() for x in dev._k_minmax_all(
-        [torch.from_numpy(a) for a, _t in cols.values()])]
+    parts = dev._fetch([dev._k_stat_parts(torch.from_numpy(a))
+                        for a, _t in cols.values()])
+    got = [np.asarray(dev._combine_parts([p], p.dtype == np.float64),
+                      dtype=p.dtype) for p in parts]
     for name, r, g in zip(cols, ref, got):
         assert r.dtype == g.dtype, name
-        assert np.array_equal(r, g), (name, r, g)
+        assert r.tobytes() == g.tobytes(), (name, r, g)
 
 
 def test_table_stats_match_reference():

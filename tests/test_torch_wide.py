@@ -29,6 +29,7 @@ import torch
 from rayforce_tpu.engine import device as rdev
 from rayforce_tpu.engine import select as rsel
 from rayforce_tpu_torch.core import types as T
+from rayforce_tpu_torch.engine import aggs
 from rayforce_tpu_torch.engine import device as dev
 from rayforce_tpu_torch.engine import groupby as G
 from rayforce_tpu_torch.engine import psort
@@ -263,7 +264,7 @@ def _old_decode(lay, key_meta, cw_o):
             if rt == T.SYMBOL or dom is not None:
                 out.append(vals.to(torch.int64))
             else:
-                out.append(vals.to(wide._tdt(rt)))
+                out.append(vals.to(aggs.tdt(rt)))
     return out
 
 
