@@ -87,15 +87,19 @@ Phases, each reported on its own line:
              mesh and 2.5e8 rows (one card's shard of
              g1_1e9_k100.mesh4), 24-bit and 14-bit codes, 1 and 3 sum
              lanes, 10% masked rows; then at 1e7 rows two-word codes and
-             all five lane ops over 8 shards; one count a call. One
+             all five lane ops over 8 shards; one code over a 2.5e8-row
+             shard (one run through every block) and a 10 000 333-row
+             shard with four lanes side by side; one count of each
+             counter (shard_partials, shard_reduce) a call. One
              [shard_partials_time] line a dist-group query of that cell
              at 2.5e8 rows over 4 shards: stage A whole by the kernels,
              the parent formulas and the plain version (CUDA events,
-             median of 11), the sort and the scans alone on the same
-             rows, the family's byte bound (the codes and lanes read
-             once, the sorted key read twice, the gathered lanes and the
-             send buffers written once), its launches and each path's
-             peak device memory;
+             median of 11), the sort and reduce and carry (`reduce_ms`)
+             alone on the same rows, the family's byte bound (the codes,
+             the permutation and each row's lanes read once, the sorted
+             key read three times, a total a run and a tail a block
+             written once, the send buffers written once), its launches
+             and each path's peak device memory;
 4. main path the db-benchmark G1_1e7_1e2 table (1e7 rows, K=100) made
              on the card from a seeded torch.Generator, and the grouped
              selects of every engine through Runtime().eval_str: bench
@@ -193,7 +197,8 @@ Phases, each reported on its own line:
              exchanged bytes and kernel calls of the dist.stats model,
              the sort launches, the stage A kernels' calls (one a shard
              of each dist-group kernel call, none in another engine; the
-             plain version never runs), the peak device memory of the
+             plain version never runs) and of them those that reduced a
+             scanned lane (shard_reduce), the peak device memory of the
              engine's card and the cards the shards sit on. On one card
              the 8
              shards exchange through device-local copies: these are not
@@ -716,7 +721,11 @@ SHARD_CASES = [(n, codes, ("sum",) * lanes, 4)
                for n in (ROWS, SHARD_ROWS) for codes in (10**7, 10**4)
                for lanes in (1, 3)] + [
     (ROWS, None, ("sum", "min", "max", "first", "last"), 8),
-    (ROWS, 10**7, ("max", "first", "sum", "last", "min"), 8)]
+    (ROWS, 10**7, ("max", "first", "sum", "last", "min"), 8),
+    # one run over every block of a card's shard (carry's pieces), and a
+    # row count off the 1024-row blocks with four lanes side by side
+    (SHARD_ROWS, 1, ("sum", "max", "min"), 4),
+    (10_000_333, 10**7, ("sum", "max", "sum", "min"), 4)]
 SHARD_TIMES = {"q2": (10**4, ("sum",)), "q3": (10**7, ("sum", "sum")),
                "q5": (10**7, ("sum",) * 3), "q6": (10**7, ("max", "min"))}
 
@@ -781,7 +790,9 @@ def _parent_stage_a(dist, torch, me, codes, lanes, lane_ops, n_dev, D,
 
 
 def _shard_case(torch, gen, n, n_codes, n_lanes, masked):
-    """A shard's codes (i64; 10% at -1 where `masked`) and f64 lanes."""
+    """A shard's codes (i64) and f64 lanes; where `masked`, 10% of the
+    codes at -1 and the lanes' rows 7 k at -0.0, 11 k + 3 at +0.0 and
+    100 003 k + 5 at NaN."""
     hi = n_codes if n_codes is not None else 1 << 37
     codes = torch.randint(0, hi, (n,), generator=gen, device="cuda")
     if masked:
@@ -789,6 +800,11 @@ def _shard_case(torch, gen, n, n_codes, n_lanes, masked):
     lanes = [torch.rand(n, generator=gen, device="cuda",
                         dtype=torch.float64) * 200 - 100
              for _ in range(n_lanes)]
+    if masked:
+        for x in lanes:
+            x[::7] = -0.0
+            x[3::11] = 0.0
+            x[5::100_003] = float("nan")
     return codes, lanes
 
 
@@ -827,11 +843,13 @@ def check_shard_partials(dist, psort, torch, gen):
         for me in (range(n_dev) if n == ROWS else (1,)):
             what = f"shard_partials n={n} codes={n_codes} ops={ops} " \
                 f"shard {me}/{n_dev}"
-            before = psort.LAUNCHES["shard_partials"]
+            before = dict(psort.LAUNCHES)
             got = dist.shard_partials_cuda(me, codes, lanes, ops, n_dev, D,
                                            n_codes)
-            if psort.LAUNCHES["shard_partials"] != before + 1:
-                raise AssertionError(f"{what}: not one count a call")
+            for counter in ("shard_partials", "shard_reduce"):
+                if psort.LAUNCHES[counter] != before[counter] + 1:
+                    raise AssertionError(f"{what}: not one {counter} count "
+                                         "a call")
             _same_bits(torch, got, dist.shard_partials_plain(
                 me, codes, lanes, ops, n_dev, D, n_codes), what + " plain")
             _same_bits(torch, got, _parent_stage_a(
@@ -848,22 +866,33 @@ def check_shard_partials(dist, psort, torch, gen):
 
 def shard_partials_bytes(n, words, scanned, size, outs):
     """The kernel family's byte bound for one shard: the codes read and
-    the key words written once (keys), the sorted key read twice and the
-    segment ids written once (runs), the permutation and each scanned
-    lane read once and written once (lanes), the send buffers written
-    once (place); the sort and the scan apart."""
-    return (8 * n + 4 * words * n + 2 * 4 * words * n +
-            (4 * n if scanned else 0) + 4 * n + 16 * scanned * n +
-            8 * size * outs)
+    the key words written once (keys); the sorted key, the permutation and
+    each row's scanned lanes read once, a total a run and lane (at most
+    `size` runs) and a tail a block and lane written once (reduce, carry);
+    the sorted key read twice (runs); the send buffers written once
+    (place); the sort apart."""
+    return (8 * n + 4 * words * n +
+            4 * words * n + 4 * n + 8 * scanned * n +
+            8 * scanned * (size + -(-n // 1024)) +
+            2 * 4 * words * n + 8 * size * outs)
+
+
+def shard_partials_launches(n, scanned):
+    """Launches of one stage A call with at most 32 scanned lanes: keys,
+    the three of runs and place; reduce and carry's one or two (two where
+    a chain can pass 1024 blocks)."""
+    blocks = -(-n // 1024)
+    return 5 + (0 if not scanned else 1 + (blocks > 1) + (blocks > 1025))
 
 
 def time_shard_partials(dist, psort, G, torch, gen):
     """One [shard_partials_time] line a dist-group query of
     g1_1e9_k100.mesh4 at one card's shard (2.5e8 rows over four shards,
     no masked rows): CUDA events, median of 11, of stage A whole by the
-    parent formulas, by the plain version and by the kernels; the sort
-    and the segmented scans alone on the same rows; the family's byte
-    bound; its launches a call; each path's peak device memory."""
+    parent formulas, by the plain version and by the kernels; the sort,
+    and reduce and carry (`reduce_ms`), alone on the same rows; the
+    family's byte bound; its launches a call; each path's peak device
+    memory."""
     out = []
     n_dev = 4
     for name, (n_codes, ops) in SHARD_TIMES.items():
@@ -891,23 +920,22 @@ def time_shard_partials(dist, psort, G, torch, gen):
              "plain_ms": cuda_ms(lambda: dist.shard_partials_plain(*args))}
         key = torch.where(codes >= 0, codes, n_codes).to(torch.int32)
         r["sort_ms"] = cuda_ms(lambda: psort.sort_i32([key], 1, perm=True))
-        (skey,), perm = psort.sort_i32([key], 1, perm=True)
-        flags = torch.cat([torch.ones(1, dtype=torch.bool, device="cuda"),
-                           skey[1:] != skey[:-1]])
-        seg = torch.cumsum(flags.to(torch.int32), 0, dtype=torch.int32)
-        del key, skey, flags
-        blocks = {op: torch.rand((SHARD_ROWS, ops.count(op)), generator=gen,
-                                 device="cuda", dtype=torch.float64)
-                  for op in set(ops)}
-        r["scan_ms"] = cuda_ms(lambda: [G._seg_scan(seg, b, op, True)
-                                        for op, b in blocks.items()])
-        del seg, blocks, perm
-        r["family_ms"] = r["ms"] - r["sort_ms"] - r["scan_ms"]
+        del key
+        # reduce and carry on the kernels' own sorted key and side-by-side
+        # rows, the lanes in the wrapper's order
+        scanned = dist._scanned(ops)
+        src = [lanes[i] for idx in scanned.values() for i in idx]
+        sops = [op for op, idx in scanned.items() for _ in idx]
+        hi, lo, sentinel, perm, width, rows = dist.shard_keys(codes, src,
+                                                              n_codes)
+        r["reduce_ms"] = cuda_ms(lambda: dist.shard_reduce(
+            SHARD_ROWS, hi, lo, sentinel, perm, src, sops, width, rows))
+        del hi, lo, perm, rows, src
+        r["family_ms"] = r["ms"] - r["sort_ms"]
         r["bound_ms"] = shard_partials_bytes(
             SHARD_ROWS, 1, len(ops), n_dev * D, 3 + len(ops)) / \
             HBM_BYTES_PER_S * 1e3
-        # keys, lanes, the three of runs, place
-        r["launches"] = 6
+        r["launches"] = shard_partials_launches(SHARD_ROWS, len(ops))
         r["peak_gb"] = json.dumps(peaks, separators=(",", ":"))
         out.append(r)
         del codes, lanes, args
@@ -1569,11 +1597,12 @@ def mesh_path(rows, device, single):
         if m is None or m.n != MESH_SHARDS:
             raise AssertionError(f"no {MESH_SHARDS}-shard mesh: {m}")
         results, per_query, stats, peak = {}, {}, {}, {}
-        scans, scan_per_query, partials = {}, {}, {}
+        scans, scan_per_query, partials, reduces = {}, {}, {}, {}
         dense, dense_per_query, shard_call = {}, {}, []
         psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["seg_scan"] = \
             psort.LAUNCHES["dense_agg"] = \
-            psort.LAUNCHES["shard_partials"] = 0
+            psort.LAUNCHES["shard_partials"] = \
+            psort.LAUNCHES["shard_reduce"] = 0
         for name, q in queries.items():
             before = dict(psort.LAUNCHES)
             dist.reset_stats()
@@ -1599,6 +1628,8 @@ def mesh_path(rows, device, single):
                 before["dense_agg"]
             partials[name] = psort.LAUNCHES["shard_partials"] - \
                 before["shard_partials"]
+            reduces[name] = psort.LAUNCHES["shard_reduce"] - \
+                before["shard_reduce"]
             if per_query[name] <= 0:
                 raise AssertionError(f"{name}: the CUDA sort never launched")
             # stage A on every shard of each wide group-by kernel call
@@ -1607,6 +1638,11 @@ def mesh_path(rows, device, single):
                     partials[name] % MESH_SHARDS:
                 raise AssertionError(f"{name} ({got}): {partials[name]} "
                                      "shard_partials calls")
+            # reduce and carry in a stage A with a scanned lane alone
+            if reduces[name] > partials[name] or \
+                    reduces[name] % MESH_SHARDS:
+                raise AssertionError(f"{name} ({got}): {reduces[name]} "
+                                     "shard_reduce counts")
             stats[name] = dict(dist.stats)
             if got in ("spmd", "dist-group") and \
                     stats[name]["kernel_calls"] <= 0:
@@ -1646,6 +1682,7 @@ def mesh_path(rows, device, single):
                   kernel_calls=stats[name]["kernel_calls"],
                   launches=per_query[name], peak_mb=round(peak[name], 1),
                   shard_partials=partials[name],
+                  shard_reduce=reduces[name],
                   equals_single_device=True, bit_identical=True,
                   cards=len(set(m.devices)))
         return launches, per_query, answers, scan_launches, \
@@ -2796,8 +2833,8 @@ def main():
         "source": "rayforce_tpu_torch/engine/csrc/shard_partials.cu",
         "replaces": "none: rayforce_tpu/parallel/dist.py "
                     "dist_wide_groupby's stage A, jnp under jax.jit (the "
-                    "mesh's q5 shard at 2.5e8 rows: keys, lanes, runs, "
-                    "place)",
+                    "mesh's q5 shard at 2.5e8 rows: keys, reduce, carry, "
+                    "runs, place)",
         "launches": mesh_partials,
         "max_abs_err": 0,
         "ms": q5_shard["ms"],

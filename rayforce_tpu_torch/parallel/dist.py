@@ -739,9 +739,11 @@ _LANE_FILL = {"sum": 0.0, "min": float("inf"), "max": float("-inf"),
 # code space is known and below 2^31 - 1, else the i64 code), and the
 # stable sort's permutation gives each sorted row's position. On the
 # card the hand-written kernels of csrc/shard_partials.cu build the sort
-# key, gather the scanned lanes, find the runs and their send slots, and
-# place the partials into the send buffers (`shard_partials_cuda`); on a
-# CPU tensor `shard_partials_plain` does the same with torch formulas.
+# key, total each run's scanned lanes through the permutation (the
+# segmented scan's reversed data flow, at the run heads alone), find the
+# runs and their send slots, and place the partials into the send
+# buffers (`shard_partials_cuda`); on a CPU tensor `shard_partials_plain`
+# does the same with torch formulas and the segmented scan.
 
 # (restype, argtypes) of every extern "C" function of
 # csrc/shard_partials.cu; tests/test_torch_dist.py holds this table, and
@@ -750,7 +752,10 @@ _P, _CI32, _CI64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SHARD_PARTIALS_ARGTYPES = {
     "rf_shard_partials_keys": (_CI32, [_CI64, _P, _CI64, _CI32, _CI32, _P,
                                        _P, _CI32, _P, _P, _CI32, _P, _P]),
-    "rf_shard_partials_lanes": (_CI32, [_CI64, _P, _CI32, _P, _P, _CI32, _P,
+    "rf_shard_partials_scratch_bytes": (_CI64, [_CI64, _CI32]),
+    "rf_shard_partials_reduce": (_CI32, [_CI64, _P, _P, _CI32, _P, _CI32, _P,
+                                         _P, _P, _CI32, _P, _CI64, _P, _P]),
+    "rf_shard_partials_carry": (_CI32, [_CI64, _P, _P, _CI32, _P, _P, _CI64,
                                         _P, _P]),
     "rf_shard_partials_runs": (_CI32, [_CI64, _P, _P, _CI32, _CI32, _CI64,
                                        _P, _P, _P, _P, _P, _P]),
@@ -762,6 +767,7 @@ SP_CHUNK = 4096          # sorted rows a warp takes in `runs`
 SP_MAX_DEV = 1024        # the most buckets (shards) a launch takes
 SP_MAX_LANES = 32        # the most lanes a launch takes
 SP_ROW_LANES = 4         # the most scanned lanes laid side by side
+_SP_OPS = {"min": 0, "max": 1, "sum": 2}    # reduce's and carry's op codes
 _I32_MAX = (1 << 31) - 1
 
 _sp_lib = None
@@ -860,7 +866,7 @@ def shard_partials_plain(me, codes, lanes, lane_ops, n_dev, D, n_codes):
 
 def shard_partials_cuda(me, codes, lanes, lane_ops, n_dev, D, n_codes):
     """Stage A by the kernels of csrc/shard_partials.cu and the engine's
-    radix sort and segmented scan: bit for bit `shard_partials_plain`.
+    radix sort: bit for bit `shard_partials_plain`.
     The codes and lanes are read in place at their strides. Any failure
     to build, load, allocate or launch raises DeviceError; shapes and
     types the kernels do not take raise ValueError before any launch."""
@@ -878,86 +884,35 @@ def shard_partials_cuda(me, codes, lanes, lane_ops, n_dev, D, n_codes):
                 f"{op} {x.dtype} {tuple(x.shape)} on {x.device}"
                 for op, x in zip(lane_ops, lanes)))
     lib = _shard_partials_lib()
-    narrow = _narrow_key(n_codes)
-    sentinel = n_codes if narrow else 0
     size = n_dev * D
     scanned = _scanned(lane_ops)
     has_last = "last" in lane_ops
-
-    def ptrs(xs, t=ctypes.c_void_p):
-        return (t * max(len(xs), 1))(*xs)
-
-    def call(what, fn, *args):
-        try:
-            with G._card_stream(dv) as stream:
-                rc = fn(*args, stream)
-        except Exception as e:
-            raise DeviceError(f"shard_partials {what}: {type(e).__name__}: "
-                              f"{e}") from e
-        if rc != 0:
-            raise DeviceError(f"shard_partials {what} launch failed: "
-                              f"cudaError {rc}")
-
     src = [lanes[i] for idx in scanned.values() for i in idx]
-    # two to four scanned lanes side by side, so that the gather reads a
-    # row's lanes in one sector
-    width = 0 if not 2 <= len(src) <= SP_ROW_LANES else \
-        2 if len(src) == 2 else 4
-    rows = torch.empty((n, width), dtype=F64, device=dv) if width else None
-    words = torch.empty((1 if narrow else 2, n), dtype=I32, device=dv)
-    call("keys", lib.rf_shard_partials_keys, n, codes.data_ptr(),
-         codes.stride(0), int(not narrow), sentinel, words[0].data_ptr(),
-         None if narrow else words[1].data_ptr(),
-         len(src) if width else 0, ptrs([x.data_ptr() for x in src]),
-         ptrs([x.stride(0) for x in src], ctypes.c_int64), width,
-         None if rows is None else rows.data_ptr())
-    skey, perm = psort.sort_i32(list(words.unbind(0)), n_keys=len(words),
-                                perm=True)
-    del words
-    hi, lo = skey[0], (None if narrow else skey[1])
-    # the scanned lanes in sorted order, in the (n, L) block an op that
-    # the segmented scan reads
-    blocks = {op: torch.empty((n, len(idx)), dtype=F64, device=dv)
-              for op, idx in scanned.items()}
-    cols = [blocks[op][:, j] for op, idx in scanned.items()
-            for j in range(len(idx))]
-    for b in range(0, len(cols), SP_MAX_LANES):
-        part = range(b, min(b + SP_MAX_LANES, len(cols)))
-        call("lanes", lib.rf_shard_partials_lanes, n, perm.data_ptr(),
-             len(part), ptrs([rows.data_ptr()] if width else
-                             [src[i].data_ptr() for i in part]),
-             ptrs([0] if width else [src[i].stride(0) for i in part],
-                  ctypes.c_int64), width,
-             ptrs([cols[i].data_ptr() for i in part]),
-             ptrs([cols[i].stride(0) for i in part], ctypes.c_int64))
-    # the side-by-side rows go before the scans allocate their outputs
-    del cols, src, rows
+    ops = [op for op, idx in scanned.items() for _ in idx]
+    hi, lo, sentinel, perm, width, rows = shard_keys(codes, src, n_codes)
+    # each run's scanned totals at its first sorted row: the (n, L) rows
+    # of `heads` are written at the run heads alone
+    heads = shard_reduce(n, hi, lo, sentinel, perm, src, ops, width, rows)
+    del src, rows
     n_chunks = -(-n // SP_CHUNK)
     counts = torch.empty((n_dev + 1) * n_chunks, dtype=I32, device=dv)
     totals = torch.empty(n_dev + 1, dtype=I32, device=dv)
-    seg = torch.empty(n, dtype=I32, device=dv) if scanned else None
     hrow = torch.empty(size, dtype=I32, device=dv)
     erow = torch.empty(size, dtype=I32, device=dv)
-    call("runs", lib.rf_shard_partials_runs, n, hi.data_ptr(),
-         None if lo is None else lo.data_ptr(), sentinel, n_dev, D,
-         counts.data_ptr(), totals.data_ptr(),
-         None if seg is None else seg.data_ptr(), hrow.data_ptr(),
-         erow.data_ptr())
+    _sp_call(dv, "runs", lib.rf_shard_partials_runs, n, hi.data_ptr(),
+             None if lo is None else lo.data_ptr(), sentinel, n_dev, D,
+             counts.data_ptr(), totals.data_ptr(), None, hrow.data_ptr(),
+             erow.data_ptr())
     del counts
-    reds = {}
-    for op in list(blocks):
-        reds[op] = _rscan(seg, blocks.pop(op), op)
-    del seg
     outs = [torch.empty(size, dtype=I64, device=dv) for _ in range(3)] + \
         [torch.empty(size, dtype=F64, device=dv) for _ in lane_ops] + \
         ([torch.empty(size, dtype=I64, device=dv)] if has_last else [])
-    # each lane's values and where place reads them: 0 the scanned total
-    # at the run's first sorted row, 1 and 2 the lane at the first and
-    # last sorted row's origin
+    # each lane's values and where place reads them: 0 the total at the
+    # run's first sorted row, 1 and 2 the lane at the first and last
+    # sorted row's origin
     vals = {}
-    for op, idx in scanned.items():
-        for j, i in enumerate(idx):
-            vals[i] = (reds[op][:, j], 0)
+    for j, i in enumerate(i for idx in scanned.values() for i in idx):
+        vals[i] = (heads[:, j], 0)
     for i, op in enumerate(lane_ops):
         if op in ("first", "last"):
             vals[i] = (lanes[i], 1 if op == "first" else 2)
@@ -965,18 +920,104 @@ def shard_partials_cuda(me, codes, lanes, lane_ops, n_dev, D, n_codes):
         part = range(b, min(b + SP_MAX_LANES, len(lane_ops)))
         ints = [o.data_ptr() for o in outs[:3]] if b == 0 else [None] * 3
         last = outs[-1].data_ptr() if has_last and b == 0 else None
-        call("place", lib.rf_shard_partials_place, size, D, n_dev, me * n,
-             totals.data_ptr(), hrow.data_ptr(), erow.data_ptr(),
-             hi.data_ptr(), None if lo is None else lo.data_ptr(),
-             perm.data_ptr(), *ints, last, len(part),
-             ptrs([vals[i][0].data_ptr() for i in part]),
-             ptrs([vals[i][0].stride(0) for i in part], ctypes.c_int64),
-             ptrs([vals[i][1] for i in part], ctypes.c_int),
-             ptrs([_LANE_FILL[lane_ops[i]] for i in part], ctypes.c_double),
-             ptrs([outs[3 + i].data_ptr() for i in part]))
+        _sp_call(dv, "place", lib.rf_shard_partials_place, size, D, n_dev,
+                 me * n, totals.data_ptr(), hrow.data_ptr(),
+                 erow.data_ptr(), hi.data_ptr(),
+                 None if lo is None else lo.data_ptr(), perm.data_ptr(),
+                 *ints, last, len(part),
+                 _ptrs([vals[i][0].data_ptr() for i in part]),
+                 _ptrs([vals[i][0].stride(0) for i in part],
+                       ctypes.c_int64),
+                 _ptrs([vals[i][1] for i in part], ctypes.c_int),
+                 _ptrs([_LANE_FILL[lane_ops[i]] for i in part],
+                       ctypes.c_double),
+                 _ptrs([outs[3 + i].data_ptr() for i in part]))
     with _LAUNCHES_LOCK:
         LAUNCHES["shard_partials"] += 1
+        if heads is not None:
+            LAUNCHES["shard_reduce"] += 1
     return outs
+
+
+def _ptrs(xs, t=ctypes.c_void_p):
+    return (t * max(len(xs), 1))(*xs)
+
+
+def _sp_call(dv, what, fn, *args):
+    """fn(*args, stream) on card dv's current stream; DeviceError for a
+    failure or a nonzero cudaError."""
+    try:
+        with G._card_stream(dv) as stream:
+            rc = fn(*args, stream)
+    except Exception as e:
+        raise DeviceError(f"shard_partials {what}: {type(e).__name__}: "
+                          f"{e}") from e
+    if rc != 0:
+        raise DeviceError(f"shard_partials {what} launch failed: "
+                          f"cudaError {rc}")
+
+
+def shard_keys(codes, src, n_codes):
+    """Stage A's sort of a shard's codes: csrc/shard_partials.cu's `keys`
+    and the radix sort of its words. Returns (hi, lo, sentinel, perm,
+    width, rows): the sorted key's words (lo None where the key is one i32
+    word, its masked rows at `sentinel`), the sort's i32 permutation, and
+    for two to SP_ROW_LANES scanned lanes `src` the lanes side by side in
+    (n, width) rows, else width 0 and rows None."""
+    n = int(codes.shape[0])
+    dv = codes.device
+    narrow = _narrow_key(n_codes)
+    sentinel = n_codes if narrow else 0
+    # two to four scanned lanes side by side, so that the gather reads a
+    # row's lanes in one sector
+    width = 0 if not 2 <= len(src) <= SP_ROW_LANES else \
+        2 if len(src) == 2 else 4
+    rows = torch.empty((n, width), dtype=F64, device=dv) if width else None
+    words = torch.empty((1 if narrow else 2, n), dtype=I32, device=dv)
+    _sp_call(dv, "keys", _shard_partials_lib().rf_shard_partials_keys, n,
+             codes.data_ptr(), codes.stride(0), int(not narrow), sentinel,
+             words[0].data_ptr(), None if narrow else words[1].data_ptr(),
+             len(src) if width else 0, _ptrs([x.data_ptr() for x in src]),
+             _ptrs([x.stride(0) for x in src], ctypes.c_int64), width,
+             None if rows is None else rows.data_ptr())
+    skey, perm = psort.sort_i32(list(words.unbind(0)), n_keys=len(words),
+                                perm=True)
+    return skey[0], None if narrow else skey[1], sentinel, perm, width, rows
+
+
+def shard_reduce(n, hi, lo, sentinel, perm, src, ops, width, rows):
+    """Each run's scanned totals by csrc/shard_partials.cu's `reduce` and
+    `carry`: an (n, len(src)) f64 tensor holding, at each run's first
+    sorted row, lane j's `ops[j]` total over the run in column j (bit for
+    bit the reversed segmented scan's value there), its other rows never
+    written; None where no lane is scanned. hi, lo: the
+    sorted key's words (lo None for one word, masked rows at
+    `sentinel`); perm: the sort's permutation; src: the lanes in shard
+    order; rows: keys' side-by-side rows where `width` is 2 or 4."""
+    if not src:
+        return None
+    lib = _shard_partials_lib()
+    dv = perm.device
+    L = len(src)
+    heads = torch.empty((n, L), dtype=F64, device=dv)
+    nb = min(L, SP_MAX_LANES)
+    scratch = torch.empty(-(-lib.rf_shard_partials_scratch_bytes(n, nb) // 8),
+                          dtype=I64, device=dv)
+    lo_p = None if lo is None else lo.data_ptr()
+    for b in range(0, L, SP_MAX_LANES):
+        part = range(b, min(b + SP_MAX_LANES, L))
+        codes = _ptrs([_SP_OPS[ops[i]] for i in part], ctypes.c_int)
+        _sp_call(dv, "reduce", lib.rf_shard_partials_reduce, n,
+                 hi.data_ptr(), lo_p, sentinel, perm.data_ptr(), len(part),
+                 codes, _ptrs([rows.data_ptr()] if width else
+                              [src[i].data_ptr() for i in part]),
+                 _ptrs([0] if width else [src[i].stride(0) for i in part],
+                       ctypes.c_int64), width, heads[:, b].data_ptr(),
+                 heads.stride(0), scratch.data_ptr())
+        _sp_call(dv, "carry", lib.rf_shard_partials_carry, n, hi.data_ptr(),
+                 lo_p, len(part), codes, heads[:, b].data_ptr(),
+                 heads.stride(0), scratch.data_ptr())
+    return heads
 
 
 def shard_partials(me, codes, lanes, lane_ops, n_dev, D, n_codes):

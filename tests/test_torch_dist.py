@@ -502,15 +502,171 @@ class _PartialsModel:
             _at(hi, np.int32, n)[:] = np.where(c >= 0, c, sentinel)
         return self.rc
 
-    def rf_shard_partials_lanes(self, n, perm, n_lanes, src, src_stride,
-                                width, dst, dst_stride, stream):
-        self.calls.append(("lanes", stream))
-        p = _at(perm, np.int32, n)
-        rows = _at(src[0], _U64, n * width).reshape(n, width) if width \
-            else None
-        for i in range(n_lanes):
-            _at(dst[i], _U64, n, dst_stride[i])[:] = rows[p, i] if width \
-                else _at(src[i], _U64, n, src_stride[i])[p]
+    # reduce and carry: the plain version's reversed scan at the run heads,
+    # with the kernels' data flow (csrc/shard_partials.cu's header)
+    _B = 1024
+    _LEAD, _G, _JOINT, _CARRY = 0x7FF, 1 << 11, 1 << 12, 1 << 13
+    _PAD = _U64(0xFFFFFFFFFFFFFFFF)
+    _IDENT = {0: np.inf, 1: -np.inf, 2: 0.0}
+    _OP = {0: np.minimum, 1: np.maximum, 2: np.add}
+
+    @staticmethod
+    def _scratch(n, lanes):
+        """Offsets of the scratch's words, tails, counters, chain records,
+        pieces and piece trees, and its size (the source's scratch_of)."""
+        def a256(x):
+            return -(-x // 256) * 256
+        R = -(-n // 1024)
+        pieces = 2 * (R // 1024) + 2
+        words, tails = 0, a256(4 * R)
+        ctl = tails + a256(8 * R * lanes)
+        chain = ctl + 256
+        piece = chain + a256(20 * (R // 1024 + 1))
+        pval = piece + a256(4 * pieces)
+        return dict(words=words, tails=tails, ctl=ctl, chain=chain,
+                    piece=piece, pval=pval,
+                    total=pval + a256(8 * pieces * lanes))
+
+    def rf_shard_partials_scratch_bytes(self, n, n_lanes):
+        return self._scratch(n, n_lanes)["total"]
+
+    def _ids(self, n, hi, lo, sentinel):
+        """Each sorted row's id: its key, a masked row its own value."""
+        k = self._key(n, hi, lo)
+        masked = k == (_KEY_MAX_WORDS if lo is not None
+                       else _U64(sentinel & 0xFFFFFFFF))
+        return np.where(masked, _U64(1 << 63) | np.arange(n, dtype=_U64), k)
+
+    def rf_shard_partials_reduce(self, n, hi, lo, sentinel, perm, n_lanes,
+                                 ops, src, src_stride, width, heads,
+                                 head_stride, scratch, stream):
+        self.calls.append(("reduce", stream))
+        assert not width or head_stride == n_lanes
+        B = self._B
+        R = -(-n // B)
+        pad = R * B - n
+        # the flipped rows in R blocks, pads past n
+        ids = np.r_[self._ids(n, hi, lo, sentinel)[::-1],
+                    np.full(pad, self._PAD)].reshape(R, B)
+        flat = ids.reshape(-1)
+        valid = (flat >> _U64(63)) == 0
+        head = (valid & (np.r_[flat[1:], self._PAD] != flat)).reshape(R, B)
+        first, last = ids[:, 0], ids[:, -1]
+        joint = np.r_[True, first[1:] != last[:-1]]
+        firsts = ids == first[:, None]
+        lead = np.where(firsts.all(1), B, np.argmin(firsts, 1))
+        after = np.r_[ids[1:, 0], self._PAD]
+        here = ((first >> _U64(63)) == 0) & ((lead < B) | (after != first))
+        words = lead | np.where(joint | (first != last), self._G, 0) | \
+            np.where(joint, self._JOINT, 0) | \
+            np.where(~joint & here, self._CARRY, 0)
+        lay = self._scratch(n, n_lanes)
+        _at(scratch + lay["words"], np.uint32, R)[:] = words
+        tails = _at(scratch + lay["tails"], np.float64,
+                    R * n_lanes).reshape(R, n_lanes)
+        p = _at(perm, np.int32, n).astype(np.int64)
+        rows = _at(src[0], np.float64, n * width).reshape(n, width) \
+            if width else None
+        b = np.nonzero(head.reshape(-1))[0]
+        for j in range(n_lanes):
+            op, ident = self._OP[ops[j]], self._IDENT[ops[j]]
+            v = rows[p, j] if width else \
+                _at(src[j], np.float64, n, src_stride[j])[p]
+            m = np.r_[v[::-1], np.full(pad, ident)].reshape(R, B)
+            d = 1
+            while d < B:
+                same = ids[:, d:] == ids[:, :-d]
+                m = np.concatenate(
+                    [m[:, :d], op(m[:, d:], np.where(same, m[:, :-d],
+                                                     ident))], 1)
+                d *= 2
+            tails[:, j] = m[:, -1]
+            if ops[j] == 2:          # step 3 with the identity, joint blocks
+                m = np.where(joint[:, None] & firsts, m + 0.0, m)
+            _at(heads + 8 * j, np.float64, n, head_stride)[n - 1 - b] = \
+                m.reshape(-1)[b]
+        _at(scratch + lay["ctl"], np.int32, 2)[:] = 0
+        return self.rc
+
+    @classmethod
+    def _tree(cls, vals, op):
+        """The kernels' warp tree over vals (j = 0 the chain's last tail,
+        at most 1024): lane l's 32 tails in its registers, then the lanes
+        by shuffles."""
+        v = list(vals) + [None] * (1024 - len(vals))
+        count = len(vals)
+        for lane in range(32):
+            for h in (1, 2, 4, 8, 16):
+                for k in range(0, 32 - h, 2 * h):
+                    if 32 * lane + k + h < count:
+                        v[32 * lane + k] = op(v[32 * lane + k + h],
+                                              v[32 * lane + k])
+        x = [v[32 * lane] for lane in range(32)]
+        for o in (1, 2, 4, 8, 16):
+            for lane in range(0, 32, 2 * o):
+                if 32 * (lane + o) < count:
+                    x[lane] = op(x[lane + o], x[lane])
+        return x[0]
+
+    @classmethod
+    def _chain_start(cls, words, k, n, rb, h):
+        """The chain's first block as the kernel finds it: a g block among
+        the 32 summary words below rb, else a 32-way gallop and search for
+        the lowest block whose last row holds the head's key."""
+        below = [r for r in range(rb - 1, rb - 33, -1)
+                 if r >= 0 and words[r] & cls._G]
+        if below:
+            return below[0]
+
+        def same(r):
+            return k[n - 1024 * (r + 1)] == k[h]
+
+        hi, step = rb - 32, 32
+        while True:
+            q = [hi - step * (lane + 1) for lane in range(32)]
+            false = [lane for lane in range(32)
+                     if not (q[lane] >= 0 and same(q[lane]))]
+            if false:
+                f = false[0]
+                lo, hi = hi - step * (f + 1), hi - step * f
+                break
+            hi, step = hi - step * 32, step * 32
+        lo = max(lo, -1)
+        while hi - lo > 1:
+            st = -(-(hi - lo) // 32)
+            q = [lo + st * (lane + 1) for lane in range(32)]
+            f = next(lane for lane in range(32)
+                     if q[lane] >= hi or same(q[lane]))
+            hi, lo = min(lo + st * (f + 1), hi), lo + st * f
+        return hi
+
+    def rf_shard_partials_carry(self, n, hi, lo, n_lanes, ops, heads,
+                                head_stride, scratch, stream):
+        self.calls.append(("carry", stream))
+        B = self._B
+        R = -(-n // B)
+        lay = self._scratch(n, n_lanes)
+        words = _at(scratch + lay["words"], np.uint32, R).astype(np.int64)
+        tails = _at(scratch + lay["tails"], np.float64,
+                    R * n_lanes).reshape(R, n_lanes)
+        k = self._key(n, hi, lo)
+        for rb in np.nonzero(words & self._CARRY)[0].tolist():
+            h = int(n - rb * B - (words[rb] & self._LEAD))
+            ra = self._chain_start(words, k, n, rb, h)
+            K = rb - ra
+            for j in range(n_lanes):
+                op = self._OP[ops[j]]
+                chain = tails[ra:rb, j][::-1]
+                if K <= 1024:
+                    pfx = self._tree(chain, op)
+                else:
+                    pv = [self._tree(chain[i:i + 1024], op)
+                          for i in range(0, K, 1024)]
+                    pfx = self._tree(pv[:1024], op)
+                    if len(pv) > 1024:
+                        pfx = op(self._tree(pv[1024:], op), pfx)
+                o = _at(heads + 8 * j + 8 * h * head_stride, np.float64, 1)
+                o[0] = op(o[0], pfx)
         return self.rc
 
     def _key(self, n, hi, lo):
@@ -607,24 +763,52 @@ def partials_model(monkeypatch):
 STAGE_A_KEYS = {"i32": 3000, "i64": None, "i64_known": 1 << 40}
 
 
+# run lengths of the "edges" layouts: every run ends on a 1024-row block
+# boundary of the reversed layout (the shard's 10 240 rows less 1024
+# masked ones, which sort last), two runs share a block
+_EDGE_RUNS = (1024, 2048, 1024, 3072, 512, 512, 1024)
+
+
 def _stage_a_case(n_dev, key, skewed, seed):
     """Per shard (me, codes, lanes) of n_dev shards of 10 000 rows (three
-    chunks of the kernels' runs): 10% masked, codes below 3000 (spread
-    over 2^40 for the i64 keys), with `skewed` 60% on one code; lanes
-    with +-0.0 and +-inf among their values."""
+    chunks of the kernels' runs; not a multiple of 1024): 10% masked,
+    codes below 3000 (spread over 2^40 for the i64 keys), with `skewed`
+    True 60% on one code; lanes with +-0.0 and +-inf among their values.
+    The layouts past the skew: "one_run", one code on every row, no
+    masked rows (one run over every block of the reversed layout);
+    "edges", 10 240 rows in runs of _EDGE_RUNS and 1024 masked rows, so
+    that every run ends on a block boundary (joint blocks); "zeros", the
+    same runs with -0.0 on every row of the sum's lane, so that the totals
+    at the heads of joint blocks' first runs take step 3's identity (-0.0
+    + 0.0) and those of runs carried in from an earlier block stay -0.0
+    (min and max keep nonzero values: torch's CPU minimum and maximum
+    return either zero of a +-0.0 pair, by vector or scalar path)."""
     rng = np.random.default_rng(seed)
-    per = 10_000
-    codes = rng.integers(0, 3000, n_dev * per).astype(np.int64)
-    if skewed:
+    per = 10_240 if skewed in ("edges", "zeros") else 10_000
+    if skewed in ("edges", "zeros"):
+        codes = np.concatenate([np.concatenate(
+            [np.repeat(rng.choice(3000, len(_EDGE_RUNS), replace=False),
+                       _EDGE_RUNS), np.full(1024, -1)])[rng.permutation(per)]
+            for _ in range(n_dev)])
+    else:
+        codes = rng.integers(0, 3000, n_dev * per).astype(np.int64)
+    if skewed is True:
         codes[rng.random(codes.size) < 0.6] = 137
+    if skewed == "one_run":
+        codes[:] = 137
     if key != "i32":
-        codes = codes * 366_503_875 + 11      # distinct codes up to ~2^40
-    codes[rng.random(codes.size) < 0.1] = -1
+        codes = np.where(codes >= 0, codes * 366_503_875 + 11, -1)
+    if skewed in (False, True):
+        codes[rng.random(codes.size) < 0.1] = -1
     lanes = [rng.uniform(-50, 50, codes.size) for _ in range(5)]
     lanes[0][::97] = np.inf
     lanes[1][::89] = -np.inf
     lanes[2][::83] = -0.0
     lanes[3][::79] = 0.0
+    if skewed == "zeros":
+        lanes[0][:] = -0.0
+        lanes[3][::2] = -0.0
+        lanes[4][::3] = 0.0
     return [(me, torch.from_numpy(codes[me * per:(me + 1) * per].copy()),
              [torch.from_numpy(x[me * per:(me + 1) * per].copy())
               for x in lanes]) for me in range(n_dev)], per
@@ -641,18 +825,20 @@ def _bits_equal(got, want, what):
 
 @pytest.mark.parametrize("n_dev", [4, 8])
 @pytest.mark.parametrize("key", list(STAGE_A_KEYS))
-@pytest.mark.parametrize("skewed", [False, True])
+@pytest.mark.parametrize("skewed", [False, True, "one_run", "edges",
+                                    "zeros"])
 def test_stage_a_send_buffers_equal_the_parent_formulas(
         partials_model, n_dev, key, skewed):
     """Stage A's send buffers from the code sorted alone equal the
     position-packed formulas' bit for bit, for the plain version and for
-    the CUDA wrapper through a model of the kernels (keys, lanes, runs,
-    place: one call each, one count a shard): every shard, 10% masked
-    rows, the lanes sum, min, max, first and last together."""
+    the CUDA wrapper through a model of the kernels (keys, reduce, carry,
+    runs, place: one call each, one count of each counter a shard): every
+    shard, the lanes sum, min, max, first and last together, over each
+    layout of `_stage_a_case`."""
     n_codes = STAGE_A_KEYS[key]
     ops = ("sum", "min", "max", "first", "last")
     shards, per = _stage_a_case(n_dev, key, skewed, 40 + n_dev)
-    before = psort.LAUNCHES["shard_partials"]
+    before = dict(psort.LAUNCHES)
     for me, codes, lanes in shards:
         want, D_ = _parent_stage_a(me, codes, lanes, ops, n_dev, per,
                                    n_codes)
@@ -664,9 +850,16 @@ def test_stage_a_send_buffers_equal_the_parent_formulas(
         _bits_equal(D.shard_partials_cuda(me, codes, lanes, ops, n_dev, D_,
                                           n_codes), want, ("kernel", me))
         assert partials_model.calls == [(s, 4321) for s in (
-            "keys", "lanes", "runs", "place")]
+            "keys", "reduce", "carry", "runs", "place")]
         del partials_model.calls[:]
-    assert psort.LAUNCHES["shard_partials"] == before + n_dev
+    for counter in ("shard_partials", "shard_reduce"):
+        assert psort.LAUNCHES[counter] == before[counter] + n_dev, counter
+    if skewed == "zeros":
+        # both signs of zero reach the sum's send buffer
+        sums = torch.cat([D.shard_partials_plain(
+            me, c, ls, ops, n_dev, D_, n_codes)[3] for me, c, ls in shards])
+        bits = set(sums.view(torch.int64).tolist())
+        assert {0, -(1 << 63)} <= bits
 
 
 @pytest.mark.parametrize("ops", [
@@ -685,6 +878,38 @@ def test_stage_a_lane_routes_equal_the_parent_formulas(partials_model, ops):
                                           3000), want, ("kernel", me, ops))
         _bits_equal(D.shard_partials_plain(me, codes, lanes, ops, 4, D_,
                                            3000), want, ("plain", me, ops))
+
+
+@pytest.mark.parametrize("rows,n_codes", [
+    (1024 * 1100 + 333, 3000),      # one run: a chain of 1100 blocks, two
+                                    # pieces
+    (1024 * 1100 + 333, None),      # the same on the two-word key
+    (1024 * 100 + 7, 3000)])        # two runs over ~50 blocks each:
+                                    # the search over the sorted key
+def test_stage_a_long_chains_equal_the_parent_formulas(partials_model, rows,
+                                                        n_codes):
+    """Runs over more blocks than the 32 summary words carry's first look
+    covers, and one run over more than a warp's 1024 tails (carry's
+    pieces), through the kernel model: bit for bit the parent formulas'
+    buffers, one shard of four, sum, max and min lanes side by side."""
+    rng = np.random.default_rng(rows)
+    if rows > 1 << 20:
+        codes = np.full(rows, 7, dtype=np.int64)
+    else:
+        codes = np.repeat(np.array([5, 16]), -(-rows // 2))[:rows]
+        codes = codes[rng.permutation(rows)]
+        codes[rng.random(rows) < 0.01] = -1
+    if n_codes is None:
+        codes = np.where(codes >= 0, codes * 366_503_875 + 11, -1)
+    ops = ("sum", "max", "min")
+    lanes = [torch.from_numpy(rng.uniform(-50, 50, rows)) for _ in ops]
+    lanes[0][::101] = -0.0
+    codes = torch.from_numpy(codes)
+    want, D_ = _parent_stage_a(1, codes, lanes, ops, 4, rows, n_codes)
+    _bits_equal(D.shard_partials_cuda(1, codes, lanes, ops, 4, D_, n_codes),
+                want, ("kernel", rows, n_codes))
+    assert [c for c, _s in partials_model.calls] == [
+        "keys", "reduce", "carry", "runs", "place"]
 
 
 def test_dist_wide_groupby_through_the_kernel_model(meshes, partials_model,
