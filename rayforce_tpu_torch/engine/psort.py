@@ -38,11 +38,15 @@ INT32_MIN = -(1 << 31)
 # segmented scan and dense aggregate, wide.py's key-word kernels; the
 # mesh's stage A kernels, parallel/dist.py `shard_partials_cuda`, once a
 # shard a stage A, and "shard_reduce" once a shard a stage A that totals
-# a scanned lane by their reduce and carry), read by chip_smoke.py and
-# tests; parted selects launch from worker threads, so the count takes a
-# lock
+# a scanned lane by their reduce and carry), read by chip_smoke.py,
+# portbench's readers and tests; besides, "radix_key_words" adds each
+# radix sort's key words, and "sortagg_exact" counts sort-agg answers
+# that came from its exact plan (sortagg.py `run`, a straggler's
+# fallback included); parted selects launch from worker threads, so the
+# count takes a lock
 LAUNCHES = {"radix_sort": 0, "seg_scan": 0, "dense_agg": 0, "wide_keys": 0,
-            "shard_partials": 0, "shard_reduce": 0}
+            "shard_partials": 0, "shard_reduce": 0, "radix_key_words": 0,
+            "sortagg_exact": 0}
 _LAUNCHES_LOCK = threading.Lock()
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -141,6 +145,7 @@ def sort_i32_cuda(words, n_keys=1, skipped=None, perm=False, route=-1):
         raise DeviceError(f"radix sort: {type(e).__name__}: {e}") from e
     with _LAUNCHES_LOCK:
         LAUNCHES["radix_sort"] += 1
+        LAUNCHES["radix_key_words"] += n_keys
     if skipped is not None:
         off = lib.rf_radix_sort_skip_offset()
         skipped += prof.host("psort.skipped",

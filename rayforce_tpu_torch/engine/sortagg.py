@@ -48,7 +48,8 @@ from . import aggs as A
 from . import device as dev
 from . import groupby as G
 from .aggs import INT_LIKE, tdt
-from .psort import argsort, sort_by_code, sort_i32, sort_mixed
+from .psort import (LAUNCHES, _LAUNCHES_LOCK, argsort, sort_by_code,
+                    sort_i32, sort_mixed)
 
 # head/tail sort sizing (module-level so tests can shrink them to force
 # the straggler fallback). The head must make missing-group odds tiny:
@@ -470,6 +471,9 @@ def run(plan: _SAPlan):
         with prof.span("plan: build"):
             plan.fallback = plan._rebuild()
         return run(plan.fallback)
+    if plan.exact:
+        with _LAUNCHES_LOCK:
+            LAUNCHES["sortagg_exact"] += 1
     if ng <= 0:
         return "empty"
     return A.lanes_table(plan.key_meta, plan.aggs,
