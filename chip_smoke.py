@@ -9,8 +9,8 @@ Phases, each reported on its own line:
 2. build     build (or load) every CUDA kernel of the port from the
              sources in this checkout, one nvcc for each, all started
              together: the radix sort, the segmented scan, the dense
-             aggregate, the wide engine's key-word kernels and the mesh's
-             stage A kernels;
+             aggregate, the wide engine's key-word kernels, the mesh's
+             stage A kernels and sort-agg's main sort word kernels;
 3. kernels   each kernel against its plain PyTorch version on the card:
              the radix sort (engine/psort.py) for n in {977, 2^20+3,
              1e7}, 1-3 key words, random / heavily tied / INT32_MAX
@@ -99,7 +99,25 @@ Phases, each reported on its own line:
              the permutation and each row's lanes read once, the sorted
              key read three times, a total a run and a tail a block
              written once, the send buffers written once), its launches
-             and each path's peak device memory;
+             and each path's peak device memory. Then sort-agg's main
+             sort words (engine/sortagg.py sortagg_keys_cuda) against
+             sortagg_keys_plain on the same card, bit for bit, at 1e7 and
+             1e8 rows on G1's q3, q5 and q6 exact plans (code|pos|packed
+             key of two words, the compaction sort's key, a q32 operand,
+             a fused sum lane), two keys on the head plan with a where
+             mask (an i32 key, the codes, the cumsum route's flags), a
+             head key of two words, and an exact plan with a where mask,
+             a strided and a broadcast scalar key whose operands are
+             every kind with its nulls (i32, i16, bool, i64, f64 with NaN
+             of either sign, +-0.0 and +-inf, q32 with NaN), read back as
+             values, null masks, null count lanes and fills: pack, the
+             CUDA sort of the packed words, read; one launch a call,
+             counted. One [sortagg_keys_time] line a step of q3's and q5's
+             exact plans on a 1e8-row G1 table with id3 and id6 at 1e6
+             codes (the 1e8-row benchmark cell's), the calls the engine
+             makes: kernel ms, the plain version's ms on the card (the
+             torch path the kernels replaced), the byte bound and the
+             launches of one call;
 4. main path the db-benchmark G1_1e7_1e2 table (1e7 rows, K=100) made
              on the card from a seeded torch.Generator, and the grouped
              selects of every engine through Runtime().eval_str: bench
@@ -123,7 +141,9 @@ Phases, each reported on its own line:
              (phases 7, 8, 10 and 11 the same); a [wide_keys_path]
              line the wide_keys kernels' launches per query, counted
              from zero at the phase's start: 3 in q7 (pack, bound and
-             decode), 0 in every other query. Then each query's warm
+             decode), 0 in every other query; a [sortagg_keys_path] line
+             the same of the sortagg_keys kernels: 2 in each sort-agg
+             query (pack and read), 0 in every other. Then each query's warm
              median exec_ms over 3 runs, and one [dense_time] line per
              dense query on the inputs it gave the dense aggregate:
              kernel, plain, torch-scatter-route and torch.bincount ms,
@@ -251,8 +271,10 @@ Phases, each reported on its own line:
              parted selects'; the dense aggregate's the main path's, the
              parted selects', the mesh selects', the two ranks' and the
              entry step's; the stage A kernels' the mesh selects'; the
-             scan's times are those of its 1e7-row i64 sum, the dense
-             aggregate's those of q1, stage A's those of q5's shard),
+             sortagg_keys kernels' the main path's; the scan's times are
+             those of its 1e7-row i64 sum, the dense aggregate's those of
+             q1, stage A's those of q5's shard, sortagg_keys' those of
+             q5's pack and read at 1e8 rows),
              then the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the result line. Without a
@@ -706,6 +728,227 @@ def time_wide_keys(W, T, psort, torch, gen):
                 "bound_ms": wide_keys_bytes(ins, outs) / HBM_BYTES_PER_S *
                 1e3,
                 "launches": launches})
+    return out
+
+
+
+# -- sort-agg's main sort words -------------------------------------------------
+
+SORTAGG_KEY_SIZES = (ROWS, 100_000_000)
+
+
+def _sortagg_key_cases(S, T, torch, gen, n):
+    """[(name, KeyPlan, pack's inputs)] at n rows: G1's q3, q5 and q6 on
+    the exact plan (id3 at 1e6 codes; code|pos|packed key, the compaction
+    sort's key), two keys on the head plan (an i32 key, the codes, the
+    cumsum route's flags) with a where mask, one key on a head plan whose
+    key needs two words, and an exact plan with a where mask, a strided
+    key and a broadcast scalar key whose operands are every kind with its
+    nulls: an i32 column with NULL_I32, an i16 with NULL_I16 riding i32, a
+    bool, an i64 with NULL_I64, an f64 with NaN of either sign, +-0.0
+    and +-inf, and a q32 with NaN, each read back as its value, null
+    mask, null count lane and fills."""
+    dv = torch.device("cuda")
+    pos = max((n - 1).bit_length(), 1)
+
+    def ints(lo, hi, dtype=torch.int64):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dv,
+                             dtype=torch.int64).to(dtype)
+
+    def holes(x, fill, share=0.1):
+        at = torch.rand(n, generator=gen, device=dv) < share
+        return torch.where(at, torch.tensor(fill, dtype=x.dtype, device=dv),
+                           x)
+    q32 = ("q32", 1e6)
+    v3 = torch.round(torch.rand(n, generator=gen, device=dv,
+                                dtype=torch.float64) * 1e8) / 1e6
+    id3, v1, v2 = ints(0, 10**6), ints(1, 6), ints(1, 16)
+    fb = max((7 * n).bit_length(), 1)     # v1's fused field
+    exact = dict(keys=((0, 10**6),), n_codes=10**6, words=2, pos_bits=pos,
+                 codes=False, search=False)
+    cases = [
+        ("q3_exact", S.KeyPlan(vb=3, packed=((0, 3, 1),),
+                               operands=((q32, T.F64),),
+                               lanes=(("field32", 0), ("fill", 0, "sum")),
+                               **exact), [id3, v1, v3]),
+        ("q5_exact", S.KeyPlan(vb=7, packed=((0, 3, 1), (3, 4, 1)),
+                               operands=((q32, T.F64),),
+                               lanes=(("fused", ((0, 0), (1, fb))),
+                                      ("fill", 0, "sum")), **exact),
+         [id3, v1, v2, v3]),
+        ("q6_exact", S.KeyPlan(vb=7, packed=((0, 3, 1), (3, 4, 1)),
+                               operands=(), lanes=(("field32", 0),
+                                                   ("field32", 1)), **exact),
+         [id3, v1, v2])]
+    # two keys on the head plan: an i32 key, with a where mask
+    id1, id2 = ints(0, 100), ints(0, 100, torch.int32)
+    cases.append(("head_two_keys_where", S.KeyPlan(
+        keys=((0, 100), (0, 100)), n_codes=10**4, words=1, pos_bits=0,
+        vb=3, packed=((0, 3, 1),), operands=(), codes=True, search=True,
+        lanes=(("field32", 0), ("field", 0))),
+        [id1, id2, v1, torch.rand(n, generator=gen, device=dv) < 0.7]))
+    # one key on a head plan of two words: 20 code bits + 14 packed
+    wide = ints(-5000, 5000, torch.int16)
+    cases.append(("head_i64_key", S.KeyPlan(
+        keys=((0, 10**6),), n_codes=10**6, words=2, pos_bits=0, vb=14,
+        packed=((0, 14, -5000),), operands=(), codes=True, search=False,
+        lanes=(("field32", 0), ("field", 0))), [id3, wide]))
+    # every operand kind with its nulls, an exact plan with a where mask,
+    # a strided i32 key and a broadcast scalar key
+    i32 = holes(ints(-2**31 + 1, 2**31 - 1, torch.int32),
+                int(T.NULL_I32))
+    i16 = holes(ints(-2**15 + 1, 2**15 - 1, torch.int16), int(T.NULL_I16))
+    b8 = torch.rand(n, generator=gen, device=dv) < 0.5
+    i64 = holes(ints(-2**62, 2**62), int(T.NULL_I64))
+    f64 = torch.randn(n, generator=gen, device=dv, dtype=torch.float64)
+    for val in (float("nan"), -float("nan"), 0.0, -0.0, float("inf"),
+                -float("inf")):
+        f64 = holes(f64, val, 0.02)
+    q = holes(v3, float("nan"))
+    ops = (("i32", T.I32), ("i32", T.I16), ("i32", T.B8), ("i64", T.I64),
+           ("f64", T.F64), (q32, T.F64))
+    lanes = []
+    for j, (_kind, rt) in enumerate(ops):
+        lanes += [("value", j)]
+        if rt != T.B8:
+            lanes += [("null", j), ("nulls", j)]
+        lanes += [("fill", j, op) for op in ("sum", "min", "max")]
+    strided = ints(0, 1000, torch.int32).repeat_interleave(2)[::2]
+    cases.append(("operands_where", S.KeyPlan(
+        keys=((0, 1000), (7, 1)), n_codes=1000, words=2, pos_bits=pos,
+        vb=0, packed=(), operands=ops, codes=True, search=True,
+        lanes=tuple(lanes)),
+        [strided, torch.tensor(7, device=dv), i32, i16, b8, i64, f64, q,
+         torch.rand(n, generator=gen, device=dv) < 0.5]))
+    return cases
+
+
+def _same_words(torch, got, want, what):
+    try:
+        _same_bits(torch, got, want, what)
+    except AssertionError as e:
+        raise AssertionError(f"sortagg_keys {e}") from None
+
+
+def check_sortagg_keys(S, T, psort, torch, gen):
+    """The main sort's word kernels against their plain version on the
+    same card, bit for bit, at each of SORTAGG_KEY_SIZES on every case of
+    `_sortagg_key_cases`: pack, the CUDA radix sort of the packed words,
+    read. Each call adds its launches (one) to LAUNCHES["sortagg_keys"].
+    Returns the cases checked."""
+    cases = 0
+    for n in SORTAGG_KEY_SIZES:
+        for name, lay, ins in _sortagg_key_cases(S, T, torch, gen, n):
+            nk, nf = len(lay.keys), len(lay.packed)
+            no = len(lay.operands)
+            mask = ins[nk + nf + no] if len(ins) > nk + nf + no else None
+            args = (ins[:nk], ins[nk:nk + nf], ins[nk + nf:nk + nf + no],
+                    mask, n)
+            before = psort.LAUNCHES["sortagg_keys"]
+            words, codes = S.pack_words(lay, *args)
+            got = words + ([codes] if lay.codes else [])
+            if psort.LAUNCHES["sortagg_keys"] != before + 1:
+                raise AssertionError(f"sortagg_keys pack {name} n={n}: "
+                                     "not one launch")
+            outs = [torch.empty_like(x) for x in got]
+            S.sortagg_keys_plain("pack", lay, list(ins), outs)
+            _same_words(torch, got, outs, f"pack {name} n={n}")
+            del outs, got, codes
+            sw = psort.sort_i32(words, n_keys=lay.words)
+            del words
+            before = psort.LAUNCHES["sortagg_keys"]
+            sc, comp, tot, lanes = S.read_words(lay, sw)
+            if psort.LAUNCHES["sortagg_keys"] != before + 1:
+                raise AssertionError(f"sortagg_keys read {name} n={n}: "
+                                     "not one launch")
+            got = [sc, comp, tot] + [lanes[s] for s in lay.lanes]
+            outs = [torch.empty_like(x) for x in got]
+            S.sortagg_keys_plain("read", lay, sw, outs)
+            _same_words(torch, got, outs, f"read {name} n={n}")
+            cases += 2
+            del sw, sc, comp, tot, lanes, got, outs
+        torch.cuda.empty_cache()
+    return cases
+
+
+def sortagg_keys_bytes(ins, outs):
+    """Each input read once (one element where every row reads the
+    same), each output written once."""
+    def read(x):
+        return x.element_size() * (1 if x.dim() == 0 or x.stride(0) == 0
+                                   else x.numel())
+    return sum(read(x) for x in ins) + \
+        sum(x.numel() * x.element_size() for x in outs)
+
+
+def time_sortagg_keys(S, torch, rows):
+    """One [sortagg_keys_time] line a step of q3's and q5's exact plans
+    on a G1 table of `rows` rows with id3 and id6 at 1e6 codes (the
+    1e8-row benchmark cell's): each call the engine makes, recorded,
+    then timed by the kernel and by the plain version on the card (the
+    torch path the kernels replaced), with the byte bound at
+    HBM_BYTES_PER_S and the launches of one call."""
+    from rayforce_tpu_torch import Runtime
+    from rayforce_tpu_torch.core import symbols
+    from rayforce_tpu_torch.core import types as T
+    from rayforce_tpu_torch.core.obj import DevPending, Obj, table, vec_sym
+    from rayforce_tpu_torch.engine import device as dev
+    from rayforce_tpu_torch.engine import psort
+    from rayforce_tpu_torch.engine import select as sel
+    from rayforce_tpu_torch.tools.g1 import NAMES, QUERIES
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    cols = []
+    for lo, hi in [(0, 100), (0, 100), (0, 10**6), (0, 100), (0, 100),
+                   (0, 10**6), (1, 6), (1, 16)]:
+        cols.append(torch.randint(lo, hi, (rows,), generator=gen,
+                                  device="cuda", dtype=torch.int64))
+    v3 = torch.rand(rows, generator=gen, device="cuda",
+                    dtype=torch.float64) * 100.0
+    cols.append(torch.round(v3 * 1e6) / 1e6)
+    del v3
+    objs = [Obj(T.F64 if a.dtype == torch.float64 else T.I64, DevPending(a))
+            for a in cols]
+    for o, a in zip(objs, cols):
+        o.meta = {"dev": a}
+    t = table(vec_sym(NAMES), objs)
+    dev.put_table(t)
+    rt = Runtime()
+    rt.interp.globals[symbols.intern("t")] = t
+    out = []
+    real = S._sortagg_keys
+    for name in ("q3", "q5"):
+        calls = []
+
+        def recording(step, lay, ins, outs):
+            calls.append((step, lay, ins, outs))
+            return real(step, lay, ins, outs)
+        S._sortagg_keys = recording
+        try:
+            rt.eval_str(QUERIES[name][0])
+        finally:
+            S._sortagg_keys = real
+        if not sel.last_profile.get("exact"):
+            raise AssertionError(f"{name} at {rows} rows: not the exact "
+                                 "plan")
+        for step, lay, ins, outs in calls:
+            before = psort.LAUNCHES["sortagg_keys"]
+            S.sortagg_keys_cuda(step, lay, ins, outs)
+            launches = psort.LAUNCHES["sortagg_keys"] - before
+            out.append({
+                "query": name, "step": step, "rows": rows,
+                "words": lay.words, "packed": len(lay.packed),
+                "operands": len(lay.operands), "lanes": len(lay.lanes),
+                "ms": cuda_ms(lambda: S.sortagg_keys_cuda(step, lay, ins,
+                                                          outs)),
+                "bound_ms": sortagg_keys_bytes(ins, outs) /
+                HBM_BYTES_PER_S * 1e3,
+                "plain_ms": cuda_ms(lambda: S.sortagg_keys_plain(
+                    step, lay, ins, outs), reps=5),
+                "launches": launches})
+        del calls
+    del rt, t, objs, cols
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1392,8 +1635,9 @@ def main_path(rows, device):
     median exec_ms per query, calls of the sort per (rows, key words,
     words) in that run, the host copies of the results, the scan
     kernel's launches in that run, the dense kernel's launches in that
-    run with the first call of each dense query, by query, and the
-    wide_keys kernels' launches in that run)."""
+    run with the first call of each dense query, by query, the
+    wide_keys kernels' launches in that run and the sortagg_keys
+    kernels')."""
     import torch
     from rayforce_tpu_torch import Runtime
     from rayforce_tpu_torch.core import symbols
@@ -1425,10 +1669,11 @@ def main_path(rows, device):
 
     scans, scan_per_query = {}, {}
     dense, dense_per_query, dense_calls = {}, {}, {}
-    wide_per_query = {}
+    wide_per_query, sk_per_query = {}, {}
     psort.sort_i32_cuda = recording
     psort.LAUNCHES["radix_sort"] = psort.LAUNCHES["seg_scan"] = \
-        psort.LAUNCHES["dense_agg"] = psort.LAUNCHES["wide_keys"] = 0
+        psort.LAUNCHES["dense_agg"] = psort.LAUNCHES["wide_keys"] = \
+        psort.LAUNCHES["sortagg_keys"] = 0
     try:
         with count_scans(scans), count_dense(dense):
             for name, (q, engine) in QUERIES.items():
@@ -1452,6 +1697,8 @@ def main_path(rows, device):
                     before["dense_agg"]
                 wide_per_query[name] = psort.LAUNCHES["wide_keys"] - \
                     before["wide_keys"]
+                sk_per_query[name] = psort.LAUNCHES["sortagg_keys"] - \
+                    before["sortagg_keys"]
                 if per_query[name] <= 0:
                     raise AssertionError(f"{name}: the CUDA sort never "
                                          "launched")
@@ -1470,6 +1717,16 @@ def main_path(rows, device):
     wide_launches = psort.LAUNCHES["wide_keys"]
     phase("wide_keys_path", path="main", launches=wide_launches,
           per_query=json.dumps(wide_per_query, separators=(",", ":")))
+    # pack and read: one launch each in a sort-agg query, none in the
+    # other engines
+    for name, (q, engine) in QUERIES.items():
+        want = 2 if engine == "sortagg" else 0
+        if sk_per_query[name] != want:
+            raise AssertionError(f"{name}: {sk_per_query[name]} "
+                                 f"sortagg_keys launches, not {want}")
+    sk_launches = psort.LAUNCHES["sortagg_keys"]
+    phase("sortagg_keys_path", path="main", launches=sk_launches,
+          per_query=json.dumps(sk_per_query, separators=(",", ":")))
     scan_launches = scan_report("main", scan_per_query, scans,
                                 SCAN_QUERIES["main"])
     dense_launches_ = dense_report("main", dense_per_query, dense,
@@ -1502,7 +1759,7 @@ def main_path(rows, device):
         phase("exec_ms", query=name, engine=engine, median_ms=exec_ms[name],
               runs=runs, bit_identical=True)
     return launches, per_query, exec_ms, shapes, host_cols, scan_launches, \
-        (dense_launches_, dense_calls), wide_launches
+        (dense_launches_, dense_calls), wide_launches, sk_launches
 
 
 def _exec_ms(prof):
@@ -2597,6 +2854,7 @@ def main():
     from rayforce_tpu_torch.engine import device as dev
     from rayforce_tpu_torch.core import types as T
     from rayforce_tpu_torch.engine import groupby as G
+    from rayforce_tpu_torch.engine import sortagg as S
     from rayforce_tpu_torch.engine import wide as W
     from rayforce_tpu_torch.parallel import dist
     from rayforce_tpu_torch.tools import denseparts
@@ -2615,14 +2873,15 @@ def main():
     # 2. build: one nvcc for each kernel family, all started together
     t0 = time.perf_counter()
     cubuild.build(["radix_sort", "seg_scan", "dense_agg", "wide_keys",
-                   "shard_partials"])
+                   "shard_partials", "sortagg_keys"])
     psort._radix_lib()
     G._seg_lib()
     G._dense_lib()
     W._wide_keys_lib()
     dist._shard_partials_lib()
+    S._sortagg_keys_lib()
     phase("build", kernels="radix_sort,seg_scan,dense_agg,wide_keys,"
-          "shard_partials",
+          "shard_partials,sortagg_keys",
           seconds=round(time.perf_counter() - t0, 3),
           nvcc_seconds=json.dumps(cubuild.build_seconds))
 
@@ -2674,12 +2933,23 @@ def main():
     shard_times = time_shard_partials(dist, psort, G, torch, gen)
     for r in shard_times:
         phase("shard_partials_time", **r)
+    t0 = time.perf_counter()
+    sk_cases = check_sortagg_keys(S, T, psort, torch, gen)
+    phase("kernels", sortagg_keys="equal", sizes=list(SORTAGG_KEY_SIZES),
+          plans="q3_exact,q5_exact,q6_exact,head_two_keys_where,"
+          "head_i64_key,operands_where", cases=sk_cases, max_abs_err=0,
+          seconds=round(time.perf_counter() - t0, 3))
+    sk_times = time_sortagg_keys(S, torch, SORTAGG_KEY_SIZES[-1])
+    for r in sk_times:
+        phase("sortagg_keys_time", **r)
 
     # 4. the main path at full size
     main_launches, per_query, _ms, shapes, single, main_scans, \
-        (main_dense, dense_calls), main_wide = main_path(ROWS, "cuda")
+        (main_dense, dense_calls), main_wide, main_sk = main_path(ROWS,
+                                                                 "cuda")
     phase("main_path", launches=main_launches, seg_scan_launches=main_scans,
           dense_agg_launches=main_dense, wide_keys_launches=main_wide,
+          sortagg_keys_launches=main_sk,
           per_query=json.dumps(per_query, separators=(",", ":")))
     for name, call in dense_calls.items():
         r = time_dense(G, psort, torch, name, call)
@@ -2840,6 +3110,22 @@ def main():
         "ms": q5_shard["ms"],
         "plain_ms": q5_shard["plain_ms"],
         "bound_ms": q5_shard["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "sortagg_keys",
+        "route": "cuda",
+        "source": "rayforce_tpu_torch/engine/csrc/sortagg_keys.cu",
+        "replaces": "none: rayforce_tpu/engine/sortagg.py pipeline's key "
+                    "arithmetic, jnp under jax.jit (q5's exact plan at 1e8 "
+                    "rows: pack + read)",
+        "launches": main_sk,
+        "max_abs_err": 0,
+        "ms": sum(r["ms"] for r in sk_times if r["query"] == "q5"),
+        "plain_ms": sum(r["plain_ms"] for r in sk_times
+                        if r["query"] == "q5"),
+        "bound_ms": sum(r["bound_ms"] for r in sk_times
+                        if r["query"] == "q5"),
         "bound_by": "bytes",
         "library_ms": None,
     }]

@@ -9,7 +9,8 @@ what the aggregates become is decided here:
 - aggregate needs: whether a column may hold nulls (`may_null`) and the
   ops each aggregated expression needs (`col_needs`);
 - sort operands: how an aggregated column rides a sort and is read back
-  after it (`operand_kind`, `operand`, `from_operand`, `skip_nulls`);
+  after it (`operand_kind`, `operand`, `from_operand`, `skip_nulls`,
+  `null_fill`);
 - the finish rules (oracle-pinned against the reference binary, the
   host kernels' semantics): all-null groups give min the typed INF of a
   plain column and max or a derived expression's min the typed NULL
@@ -17,8 +18,9 @@ what the aggregates become is decided here:
   (`sum_propagates`, `sum_nulls`); avg, med and dev skip them and divide
   by the non-null count (`avg`, `median`, `stddev`);
 - the result schema: each aggregate's result type (`result_type`), the
-  key codes in mixed radix and back (`key_codes`, `key_values`), and the
-  result table (`key_obj`, `agg_obj`, `result_table`, `lanes_table`).
+  key codes in mixed radix and back (`key_codes`, `mixed_codes`,
+  `key_values`), and the result table (`key_obj`, `agg_obj`,
+  `result_table`, `lanes_table`).
 """
 from __future__ import annotations
 
@@ -196,13 +198,18 @@ _IDENTITY = {"sum": (0.0, 0), "min": (np.inf, KEY_MAX),
              "max": (-np.inf, I64_MIN)}
 
 
+def null_fill(op, f64):
+    """The identity of op ("sum", "min", "max") that a null takes in f64
+    values (`f64`) or in integers widened to i64."""
+    return _IDENTITY[op][0 if f64 else 1]
+
+
 def skip_nulls(v, nul, op):
     """v (f64, or integers widened to i64) with its nulls replaced by the
     identity of op ("sum", "min", "max"), so a reduction skips them."""
     if nul is None:
         return v
-    fill, ifill = _IDENTITY[op]
-    return torch.where(nul, fill if v.dtype == F64 else ifill, v)
+    return torch.where(nul, null_fill(op, v.dtype == F64), v)
 
 
 # -- the finish rules -------------------------------------------------------
@@ -299,9 +306,17 @@ def key_codes(slots, cols, key_cs, key_meta, n, d, dtype=I32):
     """The dense group code of n rows in `dtype`: each key's offset from
     its least value in mixed radix, the first key most significant (all
     0 with no key). key_meta: (name, lo, rng, rtype, enum domain) a key."""
+    return mixed_codes([slots.eval(ck, cols) for ck in key_cs],
+                       [(lo, rng) for _nm, lo, rng, _rt, _dom in key_meta],
+                       n, d, dtype)
+
+
+def mixed_codes(keys, radix, n, d, dtype=I32):
+    """`key_codes` of the evaluated key columns `keys`, each with its
+    (least value, range) in `radix`."""
     codes = None
-    for ck, (_nm, lo, rng, _rt, _dom) in zip(key_cs, key_meta):
-        cc = (slots.eval(ck, cols).to(d, I64) - int(lo)).to(dtype)
+    for x, (lo, rng) in zip(keys, radix):
+        cc = (x.to(d, I64) - int(lo)).to(dtype)
         codes = cc if codes is None else codes * int(rng) + cc
     if codes is None:
         codes = torch.zeros(n, dtype=dtype, device=d)

@@ -35,8 +35,9 @@ from .device import DeviceError
 INT32_MIN = -(1 << 31)
 
 # launches of each hand-written kernel (this radix sort, groupby.py's
-# segmented scan and dense aggregate, wide.py's key-word kernels; the
-# mesh's stage A kernels, parallel/dist.py `shard_partials_cuda`, once a
+# segmented scan and dense aggregate, wide.py's key-word kernels,
+# sortagg.py's main sort words, "sortagg_keys"; the mesh's stage A
+# kernels, parallel/dist.py `shard_partials_cuda`, once a
 # shard a stage A, and "shard_reduce" once a shard a stage A that totals
 # a scanned lane by their reduce and carry), read by chip_smoke.py,
 # portbench's readers and tests; besides, "radix_key_words" adds each
@@ -46,7 +47,7 @@ INT32_MIN = -(1 << 31)
 # count takes a lock
 LAUNCHES = {"radix_sort": 0, "seg_scan": 0, "dense_agg": 0, "wide_keys": 0,
             "shard_partials": 0, "shard_reduce": 0, "radix_key_words": 0,
-            "sortagg_exact": 0}
+            "sortagg_exact": 0, "sortagg_keys": 0}
 _LAUNCHES_LOCK = threading.Lock()
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
